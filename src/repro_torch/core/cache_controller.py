@@ -1,0 +1,143 @@
+"""Batched UCP Lookahead cache partitioning, paper §3.2.1 (counterpart of
+:mod:`repro.core.cache_controller_jax`).
+
+The greedy itself is the hand-written CUDA kernel
+(:mod:`repro_torch.kernels.lookahead_greedy`) for tensors on the card and
+its plain PyTorch version for tensors on the CPU; both feed the same
+zero-utility spread (:func:`_zero_spread`).  Parity contract: allocations
+equal the numpy golden (:func:`repro.core.cache_controller.
+lookahead_allocate` / ``cppf_allocate``) exactly, under the shared
+tie-breaks (lowest client index wins equal marginal utility; smallest step
+wins within a client; the spread orders by remaining gain, stable).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import F64, DeviceLike, resolve_device
+from repro_torch.kernels.lookahead_greedy import lookahead_greedy
+
+_I32 = torch.int32
+
+
+def _zero_spread(curves, alloc, balance, active, remaining):
+    """Distribute each row's undistributed balance over its active clients
+    by remaining potential gain ``curve[remaining] - curve[alloc]`` (stable
+    order): ``balance // n_act`` each, one more to the first
+    ``balance % n_act``."""
+    B, n, _ = curves.shape
+    cur = torch.gather(curves, 2, alloc[:, :, None].long())[:, :, 0]
+    top = torch.gather(
+        curves, 2,
+        remaining.long()[:, None, None].expand(B, n, 1))[:, :, 0]
+    key = torch.where(active, -(top - cur), torch.inf)
+    order = torch.argsort(key, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1)          # inverse permutation
+    n_act = torch.clamp(active.sum(dim=-1, dtype=_I32), min=1)     # (B,)
+    share = (torch.div(balance[:, None], n_act[:, None],
+                       rounding_mode="floor")
+             + (rank < torch.remainder(balance, n_act)[:, None]))
+    need = balance > 0
+    return torch.where(need[:, None] & active, alloc + share, alloc)
+
+
+def _greedy_core(curves, min_units, active, remaining, total_units: int):
+    """Greedy (kernel on the card, plain version on the CPU) + spread.
+
+    ``curves`` ``(B, n, U+1)`` f64, ``min_units``/``remaining`` ``(B,)``
+    int, ``active`` ``(B, n)`` bool; returns ``(B, n)`` int32.
+    """
+    curves = curves.contiguous()
+    min32 = min_units.to(_I32).contiguous()
+    rem32 = remaining.to(_I32).contiguous()
+    alloc, balance = lookahead_greedy(
+        curves, min32, active.to(_I32).contiguous(), rem32,
+        total_units=int(total_units))
+    return _zero_spread(curves, alloc, balance, active, rem32)
+
+
+def lookahead_traced(curves, min_units, total_units: int):
+    """Lookahead over ``(B, n, U+1)`` curves on their device ->
+    ``(B, n)`` int32 (every client competes)."""
+    B, n, _ = curves.shape
+    return _greedy_core(
+        curves, min_units,
+        torch.ones((B, n), dtype=torch.bool, device=curves.device),
+        torch.full((B,), total_units, dtype=_I32, device=curves.device),
+        total_units)
+
+
+def lookahead_masked_traced(curves, min_units, active, total_units: int):
+    """CPpf allocation on device: inactive clients pinned at the floor,
+    the greedy over the active subset with the capacity left after
+    pinning; rows with no active client split evenly, remainder to the
+    lowest indices."""
+    B, n, _ = curves.shape
+    min32 = min_units.to(_I32)
+    remaining = total_units - min32 * (n - active.sum(dim=-1, dtype=_I32))
+    out = _greedy_core(curves, min_units, active, remaining, total_units)
+    none_active = ~active.any(dim=-1)
+    extra = total_units - n * min32
+    even = (min32[:, None]
+            + torch.div(extra[:, None], n, rounding_mode="floor")
+            + (torch.arange(n, dtype=_I32, device=curves.device)[None, :]
+               < torch.remainder(extra, n)[:, None]))
+    return torch.where(none_active[:, None], even, out)
+
+
+def _prepare(utility_curves, total_units: int, min_units, device):
+    curves = np.asarray(utility_curves, dtype=np.float64)
+    if curves.ndim < 2:
+        raise ValueError("utility curves must be at least 2-D")
+    if curves.shape[-1] != total_units + 1:
+        raise ValueError(
+            f"utility curves must have {total_units + 1} points, "
+            f"got {curves.shape[-1]}")
+    batch_shape = curves.shape[:-2]
+    n = curves.shape[-2]
+    flat = curves.reshape((-1,) + curves.shape[-2:])
+    if flat.shape[0] == 0:
+        raise ValueError("empty batch")
+    mus = np.array(np.broadcast_to(
+        np.asarray(min_units, dtype=np.int64), batch_shape).reshape(-1))
+    if np.any(mus * n > total_units):
+        raise ValueError("min_units * n exceeds capacity")
+    dev = resolve_device(device)
+    return (batch_shape, torch.as_tensor(flat, dtype=F64, device=dev),
+            torch.as_tensor(mus, device=dev), dev)
+
+
+def _finish(out: torch.Tensor, batch_shape, total_units: int) -> np.ndarray:
+    out = out.cpu().numpy().astype(np.int64)
+    if not (out.sum(axis=-1) == total_units).all():
+        raise RuntimeError("Lookahead allocation does not sum to capacity")
+    return out.reshape(batch_shape + out.shape[-1:])
+
+
+def lookahead_allocate(utility_curves, total_units: int, min_units=4,
+                       device: DeviceLike = None) -> np.ndarray:
+    """Batched Lookahead: ``(..., n, U+1)`` curves -> ``(..., n)`` int64.
+
+    Counterpart of :func:`repro.core.cache_controller_jax.
+    lookahead_allocate`; runs on ``device`` (``None``: the card).
+    """
+    batch_shape, flat, mus, _dev = _prepare(
+        utility_curves, total_units, min_units, device)
+    return _finish(lookahead_traced(flat, mus, int(total_units)),
+                   batch_shape, total_units)
+
+
+def lookahead_allocate_masked(utility_curves, total_units: int, min_units,
+                              active, device: DeviceLike = None
+                              ) -> np.ndarray:
+    """Batched CPpf allocation (counterpart of
+    :func:`repro.core.cache_controller_jax.lookahead_allocate_masked`)."""
+    batch_shape, flat, mus, dev = _prepare(
+        utility_curves, total_units, min_units, device)
+    n = flat.shape[1]
+    act = np.array(np.broadcast_to(np.asarray(active, dtype=bool),
+                                   batch_shape + (n,)).reshape(-1, n))
+    out = lookahead_masked_traced(
+        flat, mus, torch.as_tensor(act, device=dev), int(total_units))
+    return _finish(out, batch_shape, total_units)

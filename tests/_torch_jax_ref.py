@@ -1,0 +1,241 @@
+"""Reference values from the JAX package for the port's tests.
+
+The JAX package must run in float64 to be the reference, and the
+installed JAX has no in-process ``enable_x64`` context: turning on the
+global ``jax_enable_x64`` flag inside a test process would leak into the
+JAX test files that share the worker.  So each ``tests/test_torch_*.py``
+file computes its references once, in a subprocess started with
+``JAX_ENABLE_X64=1 JAX_PLATFORMS=cpu``, through a module-scoped fixture
+(:func:`jax_reference`).  The subprocess draws the inputs from a seed with
+numpy, runs the JAX functions and writes inputs and outputs to one
+``.npz``; the test feeds the same inputs to the port.
+
+Run as a script: ``python tests/_torch_jax_ref.py CASE OUT.npz``.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+#: Greedy cases: (kind, masked) over batches of (B, n, U+1) curves.
+GREEDY_KINDS = ("concave", "nonmonotone", "flat")
+GREEDY_SHAPES = ((8, 6, 48), (3, 16, 256))     # (B, n, U)
+
+SWEEP_MIXES, SWEEP_MS, SWEEP_SEED = 4, 20.0, 1
+
+
+def jax_reference(case: str, tmp_path_factory) -> dict:
+    """Run ``case`` in a float64 JAX subprocess; return its arrays."""
+    out = tmp_path_factory.mktemp("jax_ref") / f"{case}.npz"
+    env = {**os.environ, "JAX_ENABLE_X64": "1", "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join(
+               [str(SRC), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run(
+        [sys.executable, __file__, case, str(out)], env=env,
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"JAX reference {case!r} failed:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    with np.load(out) as data:
+        return dict(data)
+
+
+def greedy_curves(rng, B: int, n: int, U: int, kind: str) -> np.ndarray:
+    u = np.arange(U + 1, dtype=np.float64)
+    if kind == "concave":
+        return (rng.uniform(0.0, 50.0, (B, n, 1))
+                * (1.0 - np.exp(-u / rng.uniform(2.0, 40.0, (B, n, 1)))))
+    if kind == "nonmonotone":
+        return np.cumsum(rng.normal(0.0, 1.0, (B, n, U + 1)), axis=-1)
+    return np.zeros((B, n, U + 1))
+
+
+# --------------------------------------------------------------------- #
+# cases (run inside the float64 subprocess)
+# --------------------------------------------------------------------- #
+
+def _case_lookahead(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import cache_controller_jax as ccj
+    from repro.kernels.lookahead_greedy import ops
+
+    assert jax.config.jax_enable_x64
+    rng = np.random.default_rng(11)
+    for B, n, U in GREEDY_SHAPES:
+        for kind in GREEDY_KINDS:
+            for masked in (False, True):
+                key = f"{kind}_{int(masked)}_{B}x{n}x{U}"
+                curves = greedy_curves(rng, B, n, U, kind)
+                mins = rng.integers(0, U // n // 2 + 1, B).astype(np.int32)
+                if masked:
+                    active = rng.integers(0, 2, (B, n)).astype(bool)
+                    active[0] = False            # an all-inactive row
+                else:
+                    active = np.ones((B, n), dtype=bool)
+                remaining = (U - mins * (n - active.sum(-1))).astype(
+                    np.int32)
+                alloc, bal = ops.lookahead_greedy(
+                    jnp.asarray(curves), jnp.asarray(mins),
+                    jnp.asarray(active.astype(np.int32)),
+                    jnp.asarray(remaining), total_units=U)
+                full = ccj.lookahead_allocate_masked(
+                    curves, U, mins, active, backend="pallas")
+                out.update({
+                    f"{key}_curves": curves, f"{key}_mins": mins,
+                    f"{key}_active": active, f"{key}_remaining": remaining,
+                    f"{key}_alloc": np.asarray(alloc),
+                    f"{key}_balance": np.asarray(bal),
+                    f"{key}_full": full})
+
+
+def memsys_inputs(rng):
+    """Two-mix app stack and random allocations for the model cases."""
+    from repro.sim.apps import stack_mixes
+    from repro.sim.workloads import random_mixes
+
+    apps = stack_mixes(random_mixes(2, 16, seed=5))
+    M, n = apps.cpi_base.shape
+    units = rng.integers(4, 40, (M, n)).astype(np.float64)
+    bw = rng.uniform(1.0, 8.0, (M, n))
+    pf = rng.integers(0, 2, (M, n)).astype(np.float64)
+    return apps, units, bw, pf
+
+
+#: (cache_partitioned, bandwidth_partitioned, bandwidth_banks) of the
+#: static-flag evaluate cases.
+EVAL_FLAGS = ((True, True, 1), (True, False, 1), (False, True, 1),
+              (False, False, 1), (True, True, 4), (False, True, 4))
+
+
+def rowflag_inputs(apps, units, bw, pf):
+    """Six rows = the two mixes under three per-row flag settings."""
+    tile = {f: np.tile(getattr(apps, f), (3, 1))
+            for f in ("cpi_base", "apki", "mpki_min_alloc", "mpki_floor",
+                      "ws_units", "mlp", "wb_frac", "pf_cov", "pf_acc",
+                      "pf_hide", "pf_pollution")}
+    cache_part = np.array([True, True, False, False, True, False])[:, None]
+    bw_part = np.array([True, False, True, False, True, True])[:, None]
+    banks = np.array([1.0, 1.0, 4.0, 1.0, 4.0, 1.0])[:, None]
+    return (tile, np.tile(units, (3, 1)), np.tile(bw, (3, 1)),
+            np.tile(pf, (3, 1)), cache_part, bw_part, banks)
+
+
+def _case_memsys(out: dict) -> None:
+    import jax.numpy as jnp
+
+    from repro.sim import memsys_jax
+
+    rng = np.random.default_rng(3)
+    apps, units, bw, pf = memsys_inputs(rng)
+    for cp, bp, banks in EVAL_FLAGS:
+        ss = memsys_jax.evaluate(
+            apps, units, bw, pf, cache_partitioned=cp,
+            bandwidth_partitioned=bp, bandwidth_banks=banks)
+        for f in ("ipc", "queuing_delay_ns", "traffic_gbps", "mpki",
+                  "exposed_mpki", "occupancy_units"):
+            out[f"eval_{int(cp)}{int(bp)}{banks}_{f}"] = np.asarray(
+                getattr(ss, f))
+    tile, u6, b6, p6, cpart, bpart, banks = rowflag_inputs(
+        apps, units, bw, pf)
+    params = {k: jnp.asarray(v) for k, v in tile.items()}
+    for max_banks in (1, 4):
+        res = memsys_jax._evaluate_rowflags(
+            params, jnp.asarray(u6), jnp.asarray(b6), jnp.asarray(p6),
+            jnp.asarray(256.0), jnp.asarray(64.0), jnp.asarray(0.0),
+            jnp.asarray(cpart), jnp.asarray(bpart), iters=60,
+            bandwidth_banks=jnp.asarray(banks) if max_banks > 1 else None,
+            max_banks=max_banks)
+        out[f"rowflags_{max_banks}_ipc"] = np.asarray(res[0])
+        out[f"rowflags_{max_banks}_q"] = np.asarray(res[1])
+    ipc = np.asarray(memsys_jax.evaluate(apps, units, bw, pf).ipc)
+    out["curves"] = np.asarray(
+        memsys_jax.utility_curves(apps, pf, ipc, 256, duration_ms=0.5))
+    out["curves_ipc"] = ipc
+
+
+def controller_inputs(rng):
+    B, n, U = 6, 16, 64
+    delay = rng.uniform(0.0, 50.0, (B, n))
+    delay[0] = 0.0                                  # nobody queued
+    min_alloc = rng.uniform(0.5, 3.0, (B, 1))
+    perf_with = rng.uniform(0.1, 2.0, (B, n))
+    perf_without = rng.uniform(0.1, 2.0, (B, n))
+    perf_without[1, :4] = 0.0
+    thr = rng.uniform(1.0, 1.2, (B, 1))
+    curves = np.cumsum(rng.uniform(0.0, 5.0, (B, n, U + 1)), axis=-1)
+    slowdown = rng.uniform(0.8, 1.5, (B, n))
+    min_ways = rng.integers(1, 4, (B, 1)).astype(np.int32)
+    bound = np.full((B, 1), 1.05)
+    gain = np.full((B, 1), 8.0)
+    return dict(delay=delay, min_alloc=min_alloc, perf_with=perf_with,
+                perf_without=perf_without, thr=thr, curves=curves,
+                slowdown=slowdown, min_ways=min_ways, bound=bound,
+                gain=gain, U=np.int64(U))
+
+
+def _case_controllers(out: dict) -> None:
+    import jax.numpy as jnp
+
+    from repro.core.bandwidth_controller import allocate_bandwidth_jax
+    from repro.core.prefetch_controller import throttle_decision_jax
+    from repro.sim import policies
+
+    inp = controller_inputs(np.random.default_rng(7))
+    out.update(inp)
+    U = int(inp["U"])
+    j = {k: jnp.asarray(v) for k, v in inp.items()}
+    out["bw_scalar"] = np.asarray(allocate_bandwidth_jax(
+        j["delay"], 64.0, 1.0))
+    out["bw_rows"] = np.asarray(allocate_bandwidth_jax(
+        j["delay"], 64.0, j["min_alloc"]))
+    out["thr_scalar"] = np.asarray(throttle_decision_jax(
+        j["perf_with"], j["perf_without"], 1.05))
+    out["thr_rows"] = np.asarray(throttle_decision_jax(
+        j["perf_with"], j["perf_without"], j["thr"]))
+    units, bw = policies.auction_allocate_jax(
+        j["curves"], j["delay"], min_ways=j["min_ways"], total_units=U,
+        min_bandwidth=j["min_alloc"], total_bandwidth=64.0)
+    out["auction_units"], out["auction_bw"] = np.asarray(units), np.asarray(bw)
+    units, bw = policies.qos_allocate_jax(
+        j["curves"], j["delay"], j["slowdown"], min_ways=j["min_ways"],
+        total_units=U, min_bandwidth=j["min_alloc"], total_bandwidth=64.0,
+        bound=j["bound"], gain=j["gain"])
+    out["qos_units"], out["qos_bw"] = np.asarray(units), np.asarray(bw)
+    target = np.random.default_rng(8).dirichlet(np.ones(16), 6) * U
+    out["lrr_target"] = target
+    out["lrr"] = np.asarray(policies.largest_remainder_round_jax(
+        jnp.asarray(target), U))
+
+
+def _case_sweep(out: dict) -> None:
+    from repro.sim import random_mixes, run_sweep
+
+    res = run_sweep(random_mixes(SWEEP_MIXES, 16, seed=SWEEP_SEED),
+                    total_ms=SWEEP_MS)
+    out["baseline_ipc"] = res.baseline_ipc
+    for name in res.manager_names:
+        alloc = res.final_alloc[name]
+        out[f"{name}|ipc"] = res.ipc[name]
+        out[f"{name}|units"] = np.asarray(alloc.cache_units)
+        out[f"{name}|bw"] = np.asarray(alloc.bandwidth)
+        out[f"{name}|pf"] = np.asarray(alloc.prefetch_on)
+        out[f"{name}|geomean"] = np.float64(res.geomean_speedup(name))
+
+
+CASES = {"lookahead": _case_lookahead, "memsys": _case_memsys,
+         "controllers": _case_controllers, "sweep": _case_sweep}
+
+
+if __name__ == "__main__":
+    case, path = sys.argv[1], sys.argv[2]
+    arrays: dict = {}
+    CASES[case](arrays)
+    np.savez(path, **arrays)

@@ -1,0 +1,98 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of the ``repro`` package, and the entry
+points refuse to fall back to the CPU when no card is present.
+
+Both checks run in a fresh interpreter: the first with ``jax``,
+``jaxlib`` and ``repro`` blocked on ``sys.meta_path`` (an import of them
+raises), the second with ``CUDA_VISIBLE_DEVICES`` empty, so it holds on a
+machine with a card too.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+BLOCKED_IMPORTS = r'''
+import importlib, importlib.util, pkgutil, sys
+
+class Blocker:
+    """Refuse jax, jaxlib and the reference package (not repro_torch)."""
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+assert not leaked, leaked
+print(len(names))
+'''
+
+NO_CARD = r'''
+import torch
+assert not torch.cuda.is_available()
+from repro_torch.core.cache_controller import lookahead_allocate
+from repro_torch.sim import random_mixes, run_sweep
+import numpy as np
+for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
+             lambda: lookahead_allocate(np.zeros((16, 257)), 256)):
+    try:
+        call()
+    except RuntimeError as exc:
+        assert "device='cpu'" in str(exc), exc
+    else:
+        raise AssertionError("an entry point ran without a card")
+print("raised")
+'''
+
+
+def _run(script, *args, env=None):
+    env = {**os.environ, **(env or {}),
+           "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.run([sys.executable, "-c", script, *args], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    proc = _run(BLOCKED_IMPORTS, str(ROOT / "chip_smoke.py"))
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15   # every module was imported
+
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    proc = _run(NO_CARD, env={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "raised"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Without a card it exits non-zero and prints no result line."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, cwd=tmp_path,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Copied alone into an empty directory it fails too."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run(
+        [sys.executable, str(lone)], cwd=tmp_path,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
