@@ -29,6 +29,28 @@ It drives the port's main path, the paper's Table-3 sweep
 Phases 3 and 4 each add one profiled sweep for the device time by kernel
 and the card's busy share (device time over the unprofiled warm wall).
 
+Its second path is the paper's kernel-level binding: the UCP block
+planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
+on-chip memory budget among a kernel's tiles, and the four kernels run
+under the planned knobs:
+
+5. plan    — the planner on the card for the four specs of the committed
+             ``results/bench/kernel_blocks.json`` record (its knobs must
+             equal the record's) and for full-width specs at a budget of
+             the card's shared memory per block; every plan must equal the
+             port's CPU run, with one greedy launch per capacity group.
+6. kernels — the path itself, driven once at full width (qwen3-8b FFN
+             matmul, prefill attention and decode; mamba2-1.3b SSD scan)
+             with the launch counts reset just before it; then each of
+             ``cbp_matmul``, ``flash_attention``, ``flash_decode`` and
+             ``ssd_scan`` against its plain PyTorch version on the card
+             under (a) the planned knobs and (b) its signature defaults,
+             at the record's shapes (also against a CPU run of the plain
+             version) and at full width, planned against default knobs, a
+             few edge cases (ragged matmul dims, m < 8, cur_len 0, Sq !=
+             Sk, not causal), and times of kernel, plain version and the
+             PyTorch library call beside each kernel's bound.
+
 Every phase prints one JSON line with the card's name and power limit.
 Any failed check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}`` on success.  Without a CUDA card, or
@@ -61,6 +83,68 @@ EXPECTED_GEOMEANS = {
 # divisions and subtractions are plain f64 instructions).
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+
+#: Dense peak rates of the same data sheet for the kernel-level path: bf16
+#: on the tensor cores, and float32 on the CUDA cores (the f32 products are
+#: not run as TF32).
+BF16_TC_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
+
+#: The four specs of ``benchmarks/kernel_bench.py::kernel_block_plan_bench``
+#: (f32) and the knobs its record planned for them
+#: (results/bench/kernel_blocks.json); two budget tiers = 2 capacity groups.
+RECORD_SPECS = [
+    {"kernel": "cbp_matmul", "m": 512, "n": 512, "k": 512,
+     "dtype_bytes": 4, "budget_bytes": 768 * 1024},
+    {"kernel": "flash_attention", "seq_q": 512, "seq_kv": 512,
+     "head_dim": 64, "dtype_bytes": 4, "budget_bytes": 768 * 1024},
+    {"kernel": "flash_decode", "seq_kv": 2048, "head_dim": 64,
+     "dtype_bytes": 4, "budget_bytes": 384 * 1024},
+    {"kernel": "ssd_scan", "seq_len": 512, "state_dim": 32,
+     "dtype_bytes": 4, "budget_bytes": 384 * 1024},
+]
+EXPECTED_RECORD_KNOBS = [
+    {"block_m": 256, "block_n": 256, "block_k": 256},
+    {"block_q": 256, "block_kv": 256},
+    {"block_kv": 128},
+    {"chunk": 128},
+]
+RECORD_GROUPS = 2
+#: Full-width shapes of models the repo configures: qwen3-8b's FFN up
+#: projection, prefill (k/v repeated to 32 heads, as repeat_kv does) and
+#: decode at batch 8 (bf16); mamba2-1.3b's SSD scan (f32).
+FULL_SPECS = [
+    {"kernel": "cbp_matmul", "m": 4096, "n": 12288, "k": 4096,
+     "dtype_bytes": 2},
+    {"kernel": "flash_attention", "seq_q": 4096, "seq_kv": 4096,
+     "head_dim": 128, "dtype_bytes": 2},
+    {"kernel": "flash_decode", "seq_kv": 8192, "head_dim": 128,
+     "dtype_bytes": 2},
+    {"kernel": "ssd_scan", "seq_len": 4096, "state_dim": 128,
+     "dtype_bytes": 4},
+]
+DEFAULT_KNOBS = {
+    "cbp_matmul": {"block_m": 128, "block_n": 128, "block_k": 128},
+    "flash_attention": {"block_q": 128, "block_kv": 128},
+    "flash_decode": {"block_kv": 512},
+    "ssd_scan": {"chunk": 128},
+}
+#: Kernel vs plain tolerance (atol = rtol) by kernel and dtype: the JAX
+#: package's own kernel tests' (f32 2e-5, matmul 1e-4, SSD 2e-4 against
+#: the sequential recurrence; bf16 2e-2, a bf16 output rounding step).
+TOLERANCE = {
+    ("cbp_matmul", "float32"): 1e-4, ("flash_attention", "float32"): 2e-5,
+    ("flash_decode", "float32"): 2e-5, ("ssd_scan", "float32"): 2e-4,
+}
+BF16_TOLERANCE = 2e-2
+DECODE_LENS = (8192, 5000)
+#: file:line of each Pallas kernel's pallas_call wrapper.
+REPLACES = {
+    "cbp_matmul": "src/repro/kernels/cbp_matmul/kernel.py:45",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:86",
+    "flash_decode": "src/repro/kernels/flash_decode/kernel.py:65",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:72",
+}
 
 N_APPS, TOTAL_UNITS, MIN_WAYS = 16, 256, 4
 SMALL_MIXES, SCALE_MIXES, TOTAL_MS, SEED = 32, 4096, 100.0, 1
@@ -364,6 +448,354 @@ def scale_phase(card: str, small):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phases 5-6: the kernel-level path (UCP block planner + four kernels)
+# --------------------------------------------------------------------- #
+
+def kernel_fns(name: str):
+    """(wrapper, plain version) of one kernel of the path."""
+    from repro_torch.kernels import (cbp_matmul, flash_attention,
+                                     flash_decode, ssd_scan)
+
+    return {
+        "cbp_matmul": (cbp_matmul.cbp_matmul, cbp_matmul.cbp_matmul_plain),
+        "flash_attention": (flash_attention.flash_attention,
+                            flash_attention.flash_attention_plain),
+        "flash_decode": (flash_decode.flash_decode,
+                         flash_decode.flash_decode_plain),
+        "ssd_scan": (ssd_scan.ssd_scan, ssd_scan.ssd_scan_plain),
+    }[name]
+
+
+def plan_phase(card: str):
+    """The planner on the card for the record's and the full-width specs;
+    returns (record knobs, full-width knobs, budget)."""
+    import torch
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.runtime.cbp_runtime import plan_kernel_blocks
+
+    budget = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    full = [dict(spec, budget_bytes=budget) for spec in FULL_SPECS]
+    plans, launches = {}, {}
+    for label, specs, groups in (("record", RECORD_SPECS, RECORD_GROUPS),
+                                 ("full", full, 1)):
+        reset_launch_counts()
+        knobs = plan_kernel_blocks(specs)
+        launches[label] = launch_counts()["lookahead_greedy"]
+        cpu = plan_kernel_blocks(specs, device="cpu")
+        check(knobs == cpu, f"{label} plan on the card {knobs} != the "
+                            f"CPU plan {cpu}")
+        check(launches[label] == groups,
+              f"{label} plan launched the greedy {launches[label]} times "
+              f"for {groups} capacity groups")
+        plans[label] = knobs
+    check(plans["record"] == EXPECTED_RECORD_KNOBS,
+          f"record plan {plans['record']} != kernel_blocks.json "
+          f"{EXPECTED_RECORD_KNOBS}")
+    emit(card, phase="plan", budget_bytes=budget,
+         record_knobs=plans["record"], full_knobs=plans["full"],
+         greedy_launches=launches)
+    return plans["record"], plans["full"], budget
+
+
+def ssd_inputs(gen, b, s, h, p, n, dtype, device):
+    import torch
+    import torch.nn.functional as F
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    return (r(b, s, h, p).to(dtype), (F.softplus(r(b, s, h)) * 0.5).to(dtype),
+            -torch.exp(r(h) * 0.3), (r(b, s, n) * 0.5).to(dtype),
+            (r(b, s, n) * 0.5).to(dtype))
+
+
+def full_inputs(gen) -> dict:
+    """Full-width inputs on the card, from a seeded generator: {kernel:
+    (args, kwargs)} (decode at the first of DECODE_LENS)."""
+    import torch
+
+    bf = torch.bfloat16
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    H, S, D, HKV = 32, 4096, 128, 8
+    kv = [r(1, HKV, S, D).repeat_interleave(H // HKV, dim=1).contiguous()
+          for _ in range(2)]
+    lens = torch.tensor(DECODE_LENS[0], dtype=torch.int32, device="cuda")
+    return {
+        "cbp_matmul": ((r(4096, 4096), r(4096, 12288)), {}),
+        "flash_attention": ((r(1, H, S, D), *kv), {"causal": True}),
+        "flash_decode": ((r(8, H, D), r(8, H, 8192, D), r(8, H, 8192, D),
+                          lens), {}),
+        "ssd_scan": (ssd_inputs(gen, 2, 4096, 64, 64, 128, torch.float32,
+                                "cuda"), {}),
+    }
+
+
+def record_inputs(gen) -> dict:
+    """The kernel_block_plan_bench shapes (f32), on the card."""
+    import torch
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return {
+        "cbp_matmul": ((r(512, 512), r(512, 512)), {}),
+        "flash_attention": ((r(1, 4, 512, 64), r(1, 4, 512, 64),
+                             r(1, 4, 512, 64)), {"causal": True}),
+        "flash_decode": ((r(4, 8, 64), r(4, 8, 2048, 64), r(4, 8, 2048, 64),
+                          2048), {}),
+        "ssd_scan": (ssd_inputs(gen, 1, 512, 4, 16, 32, torch.float32,
+                                "cuda"), {}),
+    }
+
+
+def edge_cases(gen) -> list:
+    """(kernel, label, args, kwargs, knobs) at small f32 shapes: ragged
+    matmul dims and m < 8, Sq != Sk causal and not, cur_len 0 and inside
+    a block, a chunk that is not a power of two."""
+    import torch
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    kc, vc = r(2, 4, 512, 64), r(2, 4, 512, 64)
+    return [
+        ("cbp_matmul", "97x53@53x70", (r(97, 53), r(53, 70)), {},
+         {"block_m": 104, "block_n": 72, "block_k": 56}),
+        ("cbp_matmul", "m=4", (r(4, 128), r(128, 128)), {},
+         {"block_m": 4, "block_n": 128, "block_k": 128}),
+        ("flash_attention", "192x320 causal",
+         (r(1, 2, 192, 64), r(1, 2, 320, 64), r(1, 2, 320, 64)),
+         {"causal": True}, {"block_q": 64, "block_kv": 32}),
+        ("flash_attention", "320x192 not causal",
+         (r(1, 2, 320, 64), r(1, 2, 192, 64), r(1, 2, 192, 64)),
+         {"causal": False}, {"block_q": 160, "block_kv": 96}),
+        ("flash_decode", "cur_len=0",
+         (r(2, 4, 64), kc, vc, torch.tensor(0, device="cuda")), {},
+         {"block_kv": 128}),
+        ("flash_decode", "cur_len=300",
+         (r(2, 4, 64), kc, vc, 300), {}, {"block_kv": 128}),
+        ("ssd_scan", "chunk=96",
+         ssd_inputs(gen, 2, 384, 3, 16, 32, torch.float32, "cuda"), {},
+         {"chunk": 96}),
+    ]
+
+
+def compare(name: str, got, want, what: str) -> float:
+    """Max abs difference of two outputs; fails beyond the kernel's
+    tolerance (atol = rtol) for the dtype, or on a non-finite value."""
+    import torch
+
+    tol = TOLERANCE.get((name, str(got.dtype).split(".")[-1]),
+                        BF16_TOLERANCE)
+    g, w = got.float(), want.float().to(got.device)
+    check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+          f"{name} {what}: shape {tuple(g.shape)} or non-finite values")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    check(bool(torch.allclose(g, w, atol=tol, rtol=tol)),
+          f"{name} {what}: max abs err {err} beyond {tol}")
+    return err
+
+
+def time_ms(fn) -> float:
+    """CUDA-event time of one call: a warm-up, then as many calls as fill
+    about 100 ms (1 to 50)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    once = cuda_ms(fn, 1)
+    return cuda_ms(fn, max(1, min(50, int(100.0 / max(once, 1e-3)))))
+
+
+def kernel_work(name: str, args, kw: dict, knobs: dict):
+    """(bytes, operations, ops/s) the function needs on these inputs: each
+    input read once and the output written once; operations counted as
+    this run's data needs them (the causal triangle, the live cache, the
+    lower-triangular chunk products)."""
+    import torch
+
+    rate = (BF16_TC_OPS_PER_S if args[0].dtype == torch.bfloat16
+            else FP32_OPS_PER_S)
+    elt = args[0].element_size()
+    if name == "cbp_matmul":
+        a, b = args
+        (M, K), N = a.shape, b.shape[1]
+        return (a.numel() + b.numel() + M * N) * elt, 2 * M * N * K, rate
+    if name == "flash_attention":
+        q, k, v = args
+        B, H, Sq, D = q.shape
+        Sk = k.shape[2]
+        live = (sum(min(i + 1, Sk) for i in range(Sq)) if kw["causal"]
+                else Sq * Sk)
+        return ((2 * q.numel() + k.numel() + v.numel()) * elt,
+                4 * B * H * D * live, rate)
+    if name == "flash_decode":
+        q, k, v, cur_len = args
+        B, H, D = q.shape
+        L = max(0, min(int(cur_len), k.shape[2]))
+        return ((2 * q.numel() + 2 * B * H * L * D) * elt + 4,
+                4 * B * H * L * D, rate)
+    x, dt, A, Bm, Cm = args
+    B, S, H, P = x.shape
+    N, L = Bm.shape[-1], knobs["chunk"]
+    tri = L * (L + 1) // 2
+    per_chunk = 2 * tri * (N + P) + 4 * L * P * N
+    n_bytes = (2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel()) * elt
+    return n_bytes + 4 * A.numel(), per_chunk * (S // L) * B * H, rate
+
+
+def library_call(name: str, args, kw: dict):
+    """One PyTorch call computing the same function, or None."""
+    import torch
+    import torch.nn.functional as F
+
+    if name == "cbp_matmul":
+        return lambda: torch.matmul(*args)
+    if name == "flash_attention":
+        return lambda: F.scaled_dot_product_attention(
+            *args, is_causal=kw["causal"])
+    if name == "flash_decode":
+        q, k, v, cur_len = args
+        L = int(cur_len)
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :, :L], v[:, :, :L])[:, :, 0]
+    return None
+
+
+def drive_kernel_path(full: dict, budget: int):
+    """The kernel-level path once, with the launch counts reset just
+    before it: plan the four kernels' knobs at ``budget``, run each under
+    them.  Returns (knobs, outputs, launch counts)."""
+    import torch
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.runtime.cbp_runtime import plan_kernel_blocks
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    knobs = plan_kernel_blocks(
+        [dict(spec, budget_bytes=budget) for spec in FULL_SPECS])
+    outs = {}
+    for spec, kn in zip(FULL_SPECS, knobs):
+        args, kw = full[spec["kernel"]]
+        outs[spec["kernel"]] = kernel_fns(spec["kernel"])[0](*args, **kw,
+                                                             **kn)
+    torch.cuda.synchronize()
+    return knobs, outs, launch_counts()
+
+
+def kernels_phase(card: str, record_knobs, full_knobs, budget):
+    """Drive the path, then hold every kernel to its plain version and
+    time it; returns the rows of the ``kernels`` line and the path's
+    launch counts."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    full = full_inputs(gen)
+    knobs_a, outs, counts = drive_kernel_path(full, budget)
+    check(knobs_a == full_knobs, f"path plan {knobs_a} != phase 5's "
+                                 f"{full_knobs}")
+    check(counts["lookahead_greedy"] == 1,
+          f"the path's plan launched the greedy {counts['lookahead_greedy']}"
+          f" times, not once")
+    for name in DEFAULT_KNOBS:
+        check(counts[name] >= 1, f"the kernel path did not launch {name}")
+    errs = {name: 0.0 for name in DEFAULT_KNOBS}
+    rows = {}
+
+    # Full width, planned knobs (a) against the defaults (b).
+    for spec, kn_a in zip(FULL_SPECS, knobs_a):
+        name = spec["kernel"]
+        kfn, pfn = kernel_fns(name)
+        args, kw = full[name]
+        lens = DECODE_LENS if name == "flash_decode" else (None,)
+        for cur_len in lens:
+            if cur_len is not None:
+                args = (*args[:3], torch.tensor(cur_len, dtype=torch.int32,
+                                                device="cuda"))
+            kn_b = DEFAULT_KNOBS[name]
+            out_a = (outs[name] if cur_len in (None, DECODE_LENS[0])
+                     else kfn(*args, **kw, **kn_a))
+            out_b = kfn(*args, **kw, **kn_b)
+            plain = pfn(*args, **kw)
+            torch.cuda.synchronize()
+            what = ("full width" if cur_len is None
+                    else f"full width, cur_len={cur_len}")
+            err = max(compare(name, out_a, plain, what + ", knobs (a)"),
+                      compare(name, out_b, plain, what + ", knobs (b)"))
+            err_ab = compare(name, out_a, out_b, what + ", (a) vs (b)")
+            del out_a, out_b, plain
+            errs[name] = max(errs[name], err)
+            ms_a = time_ms(lambda: kfn(*args, **kw, **kn_a))
+            ms_b = time_ms(lambda: kfn(*args, **kw, **kn_b))
+            plain_ms = time_ms(lambda: pfn(*args, **kw))
+            lib = library_call(name, args, kw)
+            library_ms = time_ms(lib) if lib is not None else None
+            n_bytes, n_ops, rate = kernel_work(name, args, kw, kn_a)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / rate * 1e3
+            rec = {"shape": [list(t.shape) for t in args
+                             if isinstance(t, torch.Tensor) and t.dim()],
+                   "dtype": str(args[0].dtype).split(".")[-1],
+                   "cur_len": cur_len, "knobs_a": kn_a, "knobs_b": kn_b,
+                   "ms": ms_a, "ms_b": ms_b, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bytes": n_bytes,
+                   "operations": n_ops, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "max_abs_err": err, "max_abs_err_a_vs_b": err_ab}
+            emit(card, phase="kernels", name=name, case="full", **rec)
+            rows.setdefault(name, rec)
+
+    # The record's shapes (f32): planned and default knobs, against the
+    # plain version on the card and on the CPU.
+    rec_in = record_inputs(gen)
+    for spec, kn in zip(RECORD_SPECS, record_knobs):
+        name = spec["kernel"]
+        kfn, pfn = kernel_fns(name)
+        args, kw = rec_in[name]
+        out_a = kfn(*args, **kw, **kn)
+        out_b = kfn(*args, **kw, **DEFAULT_KNOBS[name])
+        plain = pfn(*args, **kw)
+        cpu_args = [t.cpu() if isinstance(t, torch.Tensor) else t
+                    for t in args]
+        plain_cpu = pfn(*cpu_args, **kw)
+        torch.cuda.synchronize()
+        err = max(compare(name, out_a, plain, "record, planned knobs"),
+                  compare(name, out_b, plain, "record, default knobs"),
+                  compare(name, out_a, plain_cpu, "record vs CPU plain"))
+        compare(name, out_a, out_b, "record, planned vs default")
+        errs[name] = max(errs[name], err)
+        emit(card, phase="kernels", name=name, case="record", knobs=kn,
+             shape=[list(t.shape) for t in args
+                    if isinstance(t, torch.Tensor)],
+             max_abs_err=err,
+             ms=time_ms(lambda: kfn(*args, **kw, **kn)),
+             plain_ms=time_ms(lambda: pfn(*args, **kw)))
+
+    for name, label, args, kw, kn in edge_cases(gen):
+        kfn, pfn = kernel_fns(name)
+        err = compare(name, kfn(*args, **kw, **kn), pfn(*args, **kw, **kn),
+                      label)
+        errs[name] = max(errs[name], err)
+        emit(card, phase="kernels", name=name, case=label, knobs=kn,
+             max_abs_err=err)
+
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{name}.cu",
+             "replaces": REPLACES[name], "launches": counts[name],
+             "max_abs_err": errs[name], "ms": rows[name]["ms"],
+             "plain_ms": rows[name]["plain_ms"],
+             "bound_ms": rows[name]["bound_ms"],
+             "bound_by": rows[name]["bound_by"],
+             "library_ms": rows[name]["library_ms"],
+             "shape": rows[name]["shape"]}
+            for name in DEFAULT_KNOBS], counts
+
+
 def main() -> int:
     try:
         import torch
@@ -400,6 +832,9 @@ def main() -> int:
         kern = kernel_phase(card, shapes)
         small, _ = sweep_phase(card)
         counts = scale_phase(card, small)
+        record_knobs, full_knobs, budget = plan_phase(card)
+        path_rows, path_counts = kernels_phase(card, record_knobs,
+                                               full_knobs, budget)
 
         main_rec = kern[(G * SCALE_MIXES, False)]
         kernels = [{
@@ -415,7 +850,8 @@ def main() -> int:
             "bound_by": main_rec["bound_by"],
             "library_ms": None,
             "shape": [G * SCALE_MIXES, N_APPS, TOTAL_UNITS + 1],
-        }]
+            "launches_kernel_path": path_counts["lookahead_greedy"],
+        }, *path_rows]
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -86,23 +86,28 @@ def lookahead_masked_traced(curves, min_units, active, total_units: int):
     return torch.where(none_active[:, None], even, out)
 
 
-def _prepare(utility_curves, total_units: int, min_units, device):
-    curves = np.asarray(utility_curves, dtype=np.float64)
-    if curves.ndim < 2:
-        raise ValueError("utility curves must be at least 2-D")
+def _validate(curves: np.ndarray, total_units: int,
+              min_units: np.ndarray) -> None:
     if curves.shape[-1] != total_units + 1:
         raise ValueError(
             f"utility curves must have {total_units + 1} points, "
             f"got {curves.shape[-1]}")
-    batch_shape = curves.shape[:-2]
     n = curves.shape[-2]
+    if np.any(min_units * n > total_units):
+        raise ValueError("min_units * n exceeds capacity")
+
+
+def _prepare(utility_curves, total_units: int, min_units, device):
+    curves = np.asarray(utility_curves, dtype=np.float64)
+    if curves.ndim < 2:
+        raise ValueError("utility curves must be at least 2-D")
+    batch_shape = curves.shape[:-2]
     flat = curves.reshape((-1,) + curves.shape[-2:])
     if flat.shape[0] == 0:
         raise ValueError("empty batch")
     mus = np.array(np.broadcast_to(
         np.asarray(min_units, dtype=np.int64), batch_shape).reshape(-1))
-    if np.any(mus * n > total_units):
-        raise ValueError("min_units * n exceeds capacity")
+    _validate(curves, total_units, mus)
     dev = resolve_device(device)
     return (batch_shape, torch.as_tensor(flat, dtype=F64, device=dev),
             torch.as_tensor(mus, device=dev), dev)
@@ -141,3 +146,43 @@ def lookahead_allocate_masked(utility_curves, total_units: int, min_units,
     out = lookahead_masked_traced(
         flat, mus, torch.as_tensor(act, device=dev), int(total_units))
     return _finish(out, batch_shape, total_units)
+
+
+def lookahead_allocate_grouped(curve_groups, total_units_list, min_units=4,
+                               device: DeviceLike = None) -> list:
+    """Lookahead over groups with *different* capacities (counterpart of
+    :func:`repro.core.cache_controller_jax.lookahead_allocate_grouped`).
+
+    ``curve_groups`` holds one ``(B_g, n_g, U_g + 1)`` float64 batch per
+    capacity ``U_g`` in ``total_units_list``; ``min_units`` is a scalar or
+    one scalar / ``(B_g,)`` array per group.  Returns one ``(B_g, n_g)``
+    int64 allocation per group, equal row by row to
+    :func:`lookahead_allocate`.
+
+    The greedy kernel takes one capacity (one curve width) per launch, so
+    each group is its own launch; curves are never padded to a common
+    width, which would change the greedy's candidates.
+    """
+    if len(curve_groups) != len(total_units_list):
+        raise ValueError("one total_units per curve group required")
+    if len(curve_groups) == 0:
+        raise ValueError("empty group list")
+    if np.isscalar(min_units):
+        min_units = [min_units] * len(curve_groups)
+    dev = resolve_device(device)
+    prepared = []
+    for curves, units, mus in zip(curve_groups, total_units_list, min_units):
+        curves = np.asarray(curves, dtype=np.float64)
+        if curves.ndim != 3:
+            raise ValueError("grouped curves must be (B, n, U + 1)")
+        if curves.shape[0] == 0:
+            raise ValueError("empty batch")
+        mus = np.array(np.broadcast_to(
+            np.asarray(mus, dtype=np.int64), curves.shape[:1]))
+        _validate(curves, int(units), mus)
+        prepared.append((curves, int(units), mus))
+    outs = [lookahead_traced(torch.as_tensor(c, dtype=F64, device=dev),
+                             torch.as_tensor(m, device=dev), units)
+            for c, units, m in prepared]
+    return [_finish(o, c.shape[:1], units)
+            for o, (c, units, _m) in zip(outs, prepared)]

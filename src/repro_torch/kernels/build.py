@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels and load them with ``ctypes``.
 
 Each source ``src/repro_torch/csrc/<name>.cu`` exports a plain C launch
-function.  :func:`build_all` compiles every source with its own ``nvcc``
-process, all started together, into ``build/lib<name>-<digest>.so`` at
-the root of the checkout (``.gitignore`` lists ``build/``); the digest
-covers the source and the flags, so an edited source never loads a stale
-library.  :func:`load` builds on first use.
+function ``<name>_launch`` that returns ``cudaGetLastError()`` and
+``<name>_error_string``; :func:`launcher` binds the pair.
+:func:`build_all` compiles every source with its own ``nvcc`` process,
+all started together, into ``build/lib<name>-<digest>.so`` at the root
+of the checkout (``.gitignore`` lists ``build/``); the digest covers the
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source never loads a stale library.  :func:`load` builds on first use.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``.
@@ -18,10 +20,20 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
+
+import torch
 
 #: Kernel sources under ``csrc/``, one shared library each.
-SOURCES = ("lookahead_greedy",)
+SOURCES = ("lookahead_greedy", "cbp_matmul", "flash_attention",
+           "flash_decode", "ssd_scan")
+
+#: The ``dtype`` argument of the launchers that take float tensors.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: ``ctypes`` argument types of a launcher: device pointers and the stream
+#: are ``ptr`` (a bare ``int`` would be cut to 32 bits).
+ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -33,6 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: Dict[str, Callable[..., None]] = {}
 
 
 def nvcc_path() -> str:
@@ -51,10 +64,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """``build/lib<name>-<digest>.so``; the digest covers the source, the
+    shared headers of ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -98,3 +114,29 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def launcher(name: str, argtypes: Sequence) -> Callable[..., None]:
+    """``<name>_launch`` of the kernel's library with its C signature
+    declared (the stream is appended as the last argument).  The returned
+    function launches on the current stream of the current device and
+    raises ``RuntimeError`` if the launch is refused; it never
+    synchronises."""
+    if name in _LAUNCHERS:
+        return _LAUNCHERS[name]
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [*argtypes, ptr]
+    fn.restype = ctypes.c_int
+    err_str = getattr(lib, f"{name}_error_string")
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+
+    def launch(*args) -> None:
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                               f"({err_str(err).decode()})")
+
+    _LAUNCHERS[name] = launch
+    return launch

@@ -1,0 +1,11 @@
+"""CBP blocked matmul kernel (port of the JAX package's
+repro.kernels.cbp_matmul)."""
+from repro_torch.kernels.cbp_matmul.ops import (
+    LAUNCHES,
+    cbp_matmul,
+    cbp_matmul_plain,
+    smem_footprint_bytes,
+)
+
+__all__ = ["LAUNCHES", "cbp_matmul", "cbp_matmul_plain",
+           "smem_footprint_bytes"]

@@ -15,7 +15,6 @@ division, same first-max tie-breaks.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -97,19 +96,6 @@ def lookahead_greedy_plain(curves, min_units, active, remaining, *,
     return alloc, balance
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = build.load("lookahead_greedy")
-    ptr = ctypes.c_void_p
-    lib.lookahead_greedy_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ptr]
-    lib.lookahead_greedy_launch.restype = ctypes.c_int
-    lib.lookahead_greedy_error_string.argtypes = [ctypes.c_int]
-    lib.lookahead_greedy_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def lookahead_greedy(curves, min_units, active, remaining, *,
                      total_units: int):
     """``(B, n, U+1)`` f64 curves -> ``((B, n) int32 alloc, (B,) int32
@@ -136,16 +122,11 @@ def lookahead_greedy(curves, min_units, active, remaining, *,
     balance = torch.empty((B,), dtype=_I32, device=curves.device)
     if B == 0:
         return alloc, balance
-    lib = _library()
+    launch = build.launcher("lookahead_greedy",
+                            [build.ptr] * 6 + [build.i32] * 3)
     with torch.cuda.device(curves.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lookahead_greedy_launch(
-            curves.data_ptr(), min_units.data_ptr(), active.data_ptr(),
-            remaining.data_ptr(), alloc.data_ptr(), balance.data_ptr(),
-            B, n, int(total_units), stream)
-    if err != 0:
-        msg = lib.lookahead_greedy_error_string(err).decode()
-        raise RuntimeError(f"lookahead_greedy launch failed: CUDA error "
-                           f"{err} ({msg})")
+        launch(curves.data_ptr(), min_units.data_ptr(), active.data_ptr(),
+               remaining.data_ptr(), alloc.data_ptr(), balance.data_ptr(),
+               B, n, int(total_units))
     LAUNCHES.record()
     return alloc, balance

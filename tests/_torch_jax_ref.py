@@ -29,6 +29,43 @@ GREEDY_SHAPES = ((8, 6, 48), (3, 16, 256))     # (B, n, U)
 
 SWEEP_MIXES, SWEEP_MS, SWEEP_SEED = 4, 20.0, 1
 
+#: Grouped-greedy cases: (B, n, U, min_units, kind).  U = 2048 is the
+#: reference planner's default budget (16 MiB / 8 KiB units), U = 28 an
+#: H100 block's 232,448 bytes of shared memory.
+PLANNER_GROUPS = ((4, 3, 2048, 2, "tiles"), (5, 6, 48, 1, "nonmonotone"),
+                  (3, 3, 28, 2, "tiles"), (2, 16, 256, 4, "concave"))
+#: Planner specs (the JAX key ``vmem_budget``; the port's ``budget_bytes``):
+#: the kernel_blocks record's four, full-width shapes at the reference
+#: default and at 232,448 bytes, and a prime / m < 8 query.
+PLANNER_SPECS = (
+    {"kernel": "cbp_matmul", "m": 512, "n": 512, "k": 512,
+     "dtype_bytes": 4, "vmem_budget": 768 * 1024},
+    {"kernel": "flash_attention", "seq_q": 512, "seq_kv": 512,
+     "head_dim": 64, "dtype_bytes": 4, "vmem_budget": 768 * 1024},
+    {"kernel": "flash_decode", "seq_kv": 2048, "head_dim": 64,
+     "dtype_bytes": 4, "vmem_budget": 384 * 1024},
+    {"kernel": "ssd_scan", "seq_len": 512, "state_dim": 32,
+     "dtype_bytes": 4, "vmem_budget": 384 * 1024},
+    {"kernel": "cbp_matmul", "m": 4096, "n": 12288, "k": 4096},
+    {"kernel": "flash_attention", "seq_q": 4096, "seq_kv": 4096,
+     "head_dim": 128},
+    {"kernel": "flash_decode", "seq_kv": 8192, "head_dim": 128},
+    {"kernel": "ssd_scan", "seq_len": 4096, "state_dim": 128,
+     "dtype_bytes": 4},
+    {"kernel": "cbp_matmul", "m": 4096, "n": 12288, "k": 4096,
+     "vmem_budget": 232448},
+    {"kernel": "flash_attention", "seq_q": 4096, "seq_kv": 4096,
+     "head_dim": 128, "vmem_budget": 232448},
+    {"kernel": "flash_decode", "seq_kv": 8192, "head_dim": 128,
+     "vmem_budget": 232448},
+    {"kernel": "ssd_scan", "seq_len": 4096, "state_dim": 128,
+     "dtype_bytes": 4, "vmem_budget": 232448},
+    {"kernel": "cbp_matmul", "m": 97, "n": 97, "k": 97,
+     "vmem_budget": 262144},
+    {"kernel": "cbp_matmul", "m": 6, "n": 512, "k": 512, "dtype_bytes": 4,
+     "vmem_budget": 262144},
+)
+
 
 def jax_reference(case: str, tmp_path_factory) -> dict:
     """Run ``case`` in a float64 JAX subprocess; return its arrays."""
@@ -230,8 +267,40 @@ def _case_sweep(out: dict) -> None:
         out[f"{name}|geomean"] = np.float64(res.geomean_speedup(name))
 
 
+def planner_curves(rng, B: int, n: int, U: int, kind: str) -> np.ndarray:
+    """Tile-utility curves of random matmul shapes (``kind == "tiles"``,
+    n = 3) or random greedy curves."""
+    if kind != "tiles":
+        return greedy_curves(rng, B, n, U, kind)
+    from repro.runtime.cbp_runtime import _tile_utility_curves
+
+    dims = rng.integers(1, 9, (B, 3)) * 512
+    return np.stack([_tile_utility_curves(m, nn, k, 2, 8192, U)
+                     for m, nn, k in dims])
+
+
+def _case_planner(out: dict) -> None:
+    from repro.core import cache_controller_jax as ccj
+    from repro.runtime.cbp_runtime import plan_kernel_blocks
+
+    rng = np.random.default_rng(13)
+    groups = [planner_curves(rng, B, n, U, kind)
+              for B, n, U, _m, kind in PLANNER_GROUPS]
+    mins = [m for _B, _n, _U, m, _k in PLANNER_GROUPS]
+    allocs = ccj.lookahead_allocate_grouped(
+        groups, [U for _B, _n, U, _m, _k in PLANNER_GROUPS], min_units=mins,
+        backend="jax")
+    for i, (curves, alloc) in enumerate(zip(groups, allocs)):
+        out[f"group{i}_curves"], out[f"group{i}_alloc"] = curves, alloc
+    knobs = plan_kernel_blocks([dict(s) for s in PLANNER_SPECS],
+                               allocator_backend="jax")
+    for i, kn in enumerate(knobs):
+        out[f"spec{i}_knobs"] = np.array(list(kn.values()))
+
+
 CASES = {"lookahead": _case_lookahead, "memsys": _case_memsys,
-         "controllers": _case_controllers, "sweep": _case_sweep}
+         "controllers": _case_controllers, "sweep": _case_sweep,
+         "planner": _case_planner}
 
 
 if __name__ == "__main__":

@@ -79,7 +79,9 @@ def test_stacked_equals_per_manager_bit_for_bit(stacked):
 def test_cpu_sweep_launches_no_kernel():
     reset_launch_counts()
     run_sweep(MIXES[:1], managers=["CBP"], total_ms=SWEEP_MS, device="cpu")
-    assert launch_counts() == {"lookahead_greedy": 0}
+    counts = launch_counts()
+    assert "lookahead_greedy" in counts
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def test_unported_backends_raise_not_implemented():
