@@ -46,10 +46,12 @@ under the planned knobs:
              ``ssd_scan`` against its plain PyTorch version on the card
              under (a) the planned knobs and (b) its signature defaults,
              at the record's shapes (also against a CPU run of the plain
-             version) and at full width, planned against default knobs, a
-             few edge cases (ragged matmul dims, m < 8, cur_len 0, Sq !=
-             Sk, not causal), and times of kernel, plain version and the
-             PyTorch library call beside each kernel's bound.
+             version) and at full width, planned against default knobs,
+             within the limits of ``repro_torch.kernels.tolerance``; and
+             times of kernel, plain version and the PyTorch library call
+             beside each kernel's bound.  Edge cases (ragged matmul dims,
+             m < 8, cur_len 0, Sq != Sk, not causal) are the card tests'
+             (``pytest -m cuda``).
 
 Every phase prints one JSON line with the card's name and power limit.
 Any failed check exits non-zero before the last line, which is
@@ -59,6 +61,7 @@ result.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -123,20 +126,6 @@ FULL_SPECS = [
     {"kernel": "ssd_scan", "seq_len": 4096, "state_dim": 128,
      "dtype_bytes": 4},
 ]
-DEFAULT_KNOBS = {
-    "cbp_matmul": {"block_m": 128, "block_n": 128, "block_k": 128},
-    "flash_attention": {"block_q": 128, "block_kv": 128},
-    "flash_decode": {"block_kv": 512},
-    "ssd_scan": {"chunk": 128},
-}
-#: Kernel vs plain tolerance (atol = rtol) by kernel and dtype: the JAX
-#: package's own kernel tests' (f32 2e-5, matmul 1e-4, SSD 2e-4 against
-#: the sequential recurrence; bf16 2e-2, a bf16 output rounding step).
-TOLERANCE = {
-    ("cbp_matmul", "float32"): 1e-4, ("flash_attention", "float32"): 2e-5,
-    ("flash_decode", "float32"): 2e-5, ("ssd_scan", "float32"): 2e-4,
-}
-BF16_TOLERANCE = 2e-2
 DECODE_LENS = (8192, 5000)
 #: file:line of each Pallas kernel's pallas_call wrapper.
 REPLACES = {
@@ -452,6 +441,13 @@ def scale_phase(card: str, small):
 # phases 5-6: the kernel-level path (UCP block planner + four kernels)
 # --------------------------------------------------------------------- #
 
+def default_knobs(name: str) -> dict:
+    """The block knobs of a kernel's wrapper signature, at their defaults."""
+    params = inspect.signature(kernel_fns(name)[0]).parameters.values()
+    return {p.name: p.default for p in params
+            if p.name.startswith("block_") or p.name == "chunk"}
+
+
 def kernel_fns(name: str):
     """(wrapper, plain version) of one kernel of the path."""
     from repro_torch.kernels import (cbp_matmul, flash_attention,
@@ -552,51 +548,23 @@ def record_inputs(gen) -> dict:
     }
 
 
-def edge_cases(gen) -> list:
-    """(kernel, label, args, kwargs, knobs) at small f32 shapes: ragged
-    matmul dims and m < 8, Sq != Sk causal and not, cur_len 0 and inside
-    a block, a chunk that is not a power of two."""
-    import torch
-
-    def r(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
-    kc, vc = r(2, 4, 512, 64), r(2, 4, 512, 64)
-    return [
-        ("cbp_matmul", "97x53@53x70", (r(97, 53), r(53, 70)), {},
-         {"block_m": 104, "block_n": 72, "block_k": 56}),
-        ("cbp_matmul", "m=4", (r(4, 128), r(128, 128)), {},
-         {"block_m": 4, "block_n": 128, "block_k": 128}),
-        ("flash_attention", "192x320 causal",
-         (r(1, 2, 192, 64), r(1, 2, 320, 64), r(1, 2, 320, 64)),
-         {"causal": True}, {"block_q": 64, "block_kv": 32}),
-        ("flash_attention", "320x192 not causal",
-         (r(1, 2, 320, 64), r(1, 2, 192, 64), r(1, 2, 192, 64)),
-         {"causal": False}, {"block_q": 160, "block_kv": 96}),
-        ("flash_decode", "cur_len=0",
-         (r(2, 4, 64), kc, vc, torch.tensor(0, device="cuda")), {},
-         {"block_kv": 128}),
-        ("flash_decode", "cur_len=300",
-         (r(2, 4, 64), kc, vc, 300), {}, {"block_kv": 128}),
-        ("ssd_scan", "chunk=96",
-         ssd_inputs(gen, 2, 384, 3, 16, 32, torch.float32, "cuda"), {},
-         {"chunk": 96}),
-    ]
-
-
 def compare(name: str, got, want, what: str) -> float:
-    """Max abs difference of two outputs; fails beyond the kernel's
-    tolerance (atol = rtol) for the dtype, or on a non-finite value."""
+    """Max abs difference of two outputs of one dtype; fails beyond the
+    kernel's limits (``repro_torch.kernels.tolerance``), or on a
+    non-finite value."""
     import torch
+    from repro_torch.kernels.tolerance import limits
 
-    tol = TOLERANCE.get((name, str(got.dtype).split(".")[-1]),
-                        BF16_TOLERANCE)
+    check(got.dtype == want.dtype,
+          f"{name} {what}: dtype {got.dtype} != {want.dtype}")
+    atol, rtol = limits(name, want)
     g, w = got.float(), want.float().to(got.device)
     check(g.shape == w.shape and bool(torch.isfinite(g).all()),
           f"{name} {what}: shape {tuple(g.shape)} or non-finite values")
     err = float((g - w).abs().max()) if g.numel() else 0.0
-    check(bool(torch.allclose(g, w, atol=tol, rtol=tol)),
-          f"{name} {what}: max abs err {err} beyond {tol}")
+    check(bool(torch.allclose(g, w, atol=atol, rtol=rtol)),
+          f"{name} {what}: max abs err {err} beyond atol {atol} + rtol "
+          f"{rtol} x |plain|")
     return err
 
 
@@ -611,11 +579,11 @@ def time_ms(fn) -> float:
     return cuda_ms(fn, max(1, min(50, int(100.0 / max(once, 1e-3)))))
 
 
-def kernel_work(name: str, args, kw: dict, knobs: dict):
-    """(bytes, operations, ops/s) the function needs on these inputs: each
-    input read once and the output written once; operations counted as
-    this run's data needs them (the causal triangle, the live cache, the
-    lower-triangular chunk products)."""
+def kernel_work(name: str, args, kw: dict):
+    """(bytes, operations, ops/s) the function needs on these inputs,
+    whatever the knobs: each input read once and the output written once;
+    operations counted as this run's data needs them (the causal triangle,
+    the live cache, the SSD recurrence one step at a time)."""
     import torch
 
     rate = (BF16_TC_OPS_PER_S if args[0].dtype == torch.bfloat16
@@ -639,13 +607,15 @@ def kernel_work(name: str, args, kw: dict, knobs: dict):
         L = max(0, min(int(cur_len), k.shape[2]))
         return ((2 * q.numel() + 2 * B * H * L * D) * elt + 4,
                 4 * B * H * L * D, rate)
+    # SSD in its chunk-1 form (the recurrence), per step and head: C.B^T
+    # and its product with x dt (2 (N + P)), the state's update and
+    # y = C.state (4 P N).  A larger chunk only adds intra-chunk products.
     x, dt, A, Bm, Cm = args
     B, S, H, P = x.shape
-    N, L = Bm.shape[-1], knobs["chunk"]
-    tri = L * (L + 1) // 2
-    per_chunk = 2 * tri * (N + P) + 4 * L * P * N
+    N = Bm.shape[-1]
+    per_step = 2 * (N + P) + 4 * P * N
     n_bytes = (2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel()) * elt
-    return n_bytes + 4 * A.numel(), per_chunk * (S // L) * B * H, rate
+    return n_bytes + 4 * A.numel(), per_step * B * S * H, rate
 
 
 def library_call(name: str, args, kw: dict):
@@ -702,9 +672,9 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
     check(counts["lookahead_greedy"] == 1,
           f"the path's plan launched the greedy {counts['lookahead_greedy']}"
           f" times, not once")
-    for name in DEFAULT_KNOBS:
+    for name in REPLACES:
         check(counts[name] >= 1, f"the kernel path did not launch {name}")
-    errs = {name: 0.0 for name in DEFAULT_KNOBS}
+    errs = {name: 0.0 for name in REPLACES}
     rows = {}
 
     # Full width, planned knobs (a) against the defaults (b).
@@ -717,7 +687,7 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
             if cur_len is not None:
                 args = (*args[:3], torch.tensor(cur_len, dtype=torch.int32,
                                                 device="cuda"))
-            kn_b = DEFAULT_KNOBS[name]
+            kn_b = default_knobs(name)
             out_a = (outs[name] if cur_len in (None, DECODE_LENS[0])
                      else kfn(*args, **kw, **kn_a))
             out_b = kfn(*args, **kw, **kn_b)
@@ -735,7 +705,7 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
             plain_ms = time_ms(lambda: pfn(*args, **kw))
             lib = library_call(name, args, kw)
             library_ms = time_ms(lib) if lib is not None else None
-            n_bytes, n_ops, rate = kernel_work(name, args, kw, kn_a)
+            n_bytes, n_ops, rate = kernel_work(name, args, kw)
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = n_ops / rate * 1e3
             rec = {"shape": [list(t.shape) for t in args
@@ -758,7 +728,7 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
         kfn, pfn = kernel_fns(name)
         args, kw = rec_in[name]
         out_a = kfn(*args, **kw, **kn)
-        out_b = kfn(*args, **kw, **DEFAULT_KNOBS[name])
+        out_b = kfn(*args, **kw, **default_knobs(name))
         plain = pfn(*args, **kw)
         cpu_args = [t.cpu() if isinstance(t, torch.Tensor) else t
                     for t in args]
@@ -776,14 +746,6 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
              ms=time_ms(lambda: kfn(*args, **kw, **kn)),
              plain_ms=time_ms(lambda: pfn(*args, **kw)))
 
-    for name, label, args, kw, kn in edge_cases(gen):
-        kfn, pfn = kernel_fns(name)
-        err = compare(name, kfn(*args, **kw, **kn), pfn(*args, **kw, **kn),
-                      label)
-        errs[name] = max(errs[name], err)
-        emit(card, phase="kernels", name=name, case=label, knobs=kn,
-             max_abs_err=err)
-
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/{name}.cu",
              "replaces": REPLACES[name], "launches": counts[name],
@@ -793,7 +755,7 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
              "bound_by": rows[name]["bound_by"],
              "library_ms": rows[name]["library_ms"],
              "shape": rows[name]["shape"]}
-            for name in DEFAULT_KNOBS], counts
+            for name in REPLACES], counts
 
 
 def main() -> int:

@@ -10,9 +10,10 @@ card.  Run them on the card with
 The file imports neither JAX nor the JAX package, which the card's
 machine does not have; the CPU comparisons with the JAX package are in
 ``tests/test_torch_{planner,matmul,attention,decode,ssd}.py``.
-Tolerances (atol = rtol) are those of the CPU files: f32 2e-5 (attention,
-decode), 1e-4 (matmul), 2e-4 (SSD against the sequential recurrence);
-bf16 2e-2.
+The limits are those of ``repro_torch.kernels.tolerance``: in f32 atol =
+rtol = 2e-5 (attention, decode), 1e-4 (matmul), 2e-4 (SSD against the
+sequential recurrence); in bf16 rtol = 2^-7 (one bf16 ulp of the element)
+and atol = the f32 tolerance times the largest output.
 """
 import ctypes
 
@@ -34,13 +35,11 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.ssd_scan import smem_bytes, ssd_scan, ssd_scan_plain
+from repro_torch.kernels.tolerance import limits
 from repro_torch.runtime import cbp_runtime as rt
 
 pytestmark = pytest.mark.cuda
 
-TOL = {"cbp_matmul": 1e-4, "flash_attention": 2e-5, "flash_decode": 2e-5,
-       "ssd_scan": 2e-4}
-BF16_TOL = 2e-2
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -57,8 +56,10 @@ def _randn(rng, shape, dtype, dev, scale=1.0):
 
 
 def _close(name, got, want):
-    tol = TOL[name] if got.dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert got.dtype == want.dtype
+    atol, rtol = limits(name, want)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 def _launched_once(name, fn):
