@@ -12,7 +12,9 @@ It drives the port's main path, the paper's Table-3 sweep
              ``build/`` (one ``nvcc`` per source, all at once).
 2. kernel  — the Lookahead greedy kernel against its plain PyTorch version
              on the card at the sweep's shapes (n=16, U=256, f64;
-             concave, nonmonotone and flat curves; plain and masked):
+             concave, nonmonotone and flat curves; plain and masked), and
+             on the very inputs the 4096-mix sweep hands the kernel at its
+             first boundary (captured from the sweep, which stops there):
              ``alloc`` and ``balance`` must be exactly equal.  Prints the
              kernel's and the plain version's times and the kernel's bound.
 3. sweep   — all 14 managers over ``random_mixes(32, 16, seed=1)``, 100 ms:
@@ -53,8 +55,10 @@ under the planned knobs:
              m < 8, cur_len 0, Sq != Sk, not causal) are the card tests'
              (``pytest -m cuda``).
 
-Every phase prints one JSON line with the card's name and power limit.
-Any failed check exits non-zero before the last line, which is
+Every phase prints one JSON line with the card's name and power limit,
+and a last ``done`` line gives the script's seconds; then comes the
+``kernels`` line (every kernel's launches on its path, error, times and
+bound; the greedy's at the sweep's own boundary inputs).  Any failed check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}`` on success.  Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -196,6 +200,59 @@ def greedy_inputs(B: int, masked: bool, seed: int):
             torch.as_tensor(remaining, device=dev))
 
 
+def sweep_boundary_inputs():
+    """The greedy's inputs at the first boundary of the 4096-mix sweep:
+    ``timeline.run_timelines`` hands them to ``lookahead_masked_traced``,
+    which calls the kernel's wrapper through ``core.cache_controller``.  A
+    stand-in wrapper there keeps a copy of the first call's arguments and
+    stops the sweep; returns ``(curves, min_units, active, remaining)``."""
+    from repro_torch.core import cache_controller
+    from repro_torch.sim import random_mixes, run_sweep
+
+    class Captured(Exception):
+        pass
+
+    got = {}
+
+    def capture(*args, total_units):
+        check(total_units == TOTAL_UNITS,
+              f"the sweep's greedy has U = {total_units}")
+        got["args"] = tuple(t.clone() for t in args)
+        raise Captured
+
+    real = cache_controller.lookahead_greedy
+    cache_controller.lookahead_greedy = capture
+    try:
+        run_sweep(random_mixes(SCALE_MIXES, N_APPS, seed=SEED),
+                  total_ms=TOTAL_MS)
+    except Captured:
+        pass
+    finally:
+        cache_controller.lookahead_greedy = real
+    check("args" in got, "the 4096-mix sweep never called the greedy")
+    return got["args"]
+
+
+def greedy_bound(args, U: int):
+    """(bytes, operations) the greedy needs on these inputs: every input
+    read once and the outputs written once; one f64 subtraction and one
+    division for each candidate step of a live row's first trip, which
+    any exact greedy must evaluate (later trips need fewer, and how many
+    depends on the algorithm)."""
+    import torch
+
+    curves, mins, active, rem = args
+    B, n, _ = curves.shape
+    n_bytes = (curves.numel() * 8
+               + 4 * (mins.numel() + rem.numel() + active.numel()
+                      + B * n + B))
+    balance = U - n * mins.long()
+    cap = torch.minimum(balance, torch.clamp(rem.long(), max=U) - mins)
+    cap = torch.where((active != 0) & (balance > 0)[:, None],
+                      cap.clamp(min=0)[:, None], 0)
+    return n_bytes, 2 * int(cap.sum())
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -210,8 +267,9 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_phase(card: str, shapes) -> dict:
-    """Compare and time the kernel at each batch size in ``shapes``;
-    returns the measurements per (B, masked)."""
+    """Compare and time the kernel at each batch size in ``shapes`` and on
+    the sweep's own boundary inputs; returns the measurements per (B,
+    masked), the latter under the key "sweep"."""
     import torch
     from repro_torch.kernels.lookahead_greedy import (
         LAUNCHES,
@@ -221,43 +279,49 @@ def kernel_phase(card: str, shapes) -> dict:
 
     U = TOTAL_UNITS
     out = {}
-    for B in shapes:
-        for masked in (False, True):
-            launches0 = LAUNCHES.count
-            args = greedy_inputs(B, masked, seed=B + masked)
-            alloc, bal = lookahead_greedy(*args, total_units=U)
-            torch.cuda.synchronize()
-            work = {}
-            alloc_p, bal_p = lookahead_greedy_plain(*args, total_units=U,
-                                                    work=work)
-            torch.cuda.synchronize()
-            err = max(int((alloc - alloc_p).abs().max()),
-                      int((bal - bal_p).abs().max()))
-            check(torch.equal(alloc, alloc_p) and torch.equal(bal, bal_p),
-                  f"lookahead_greedy != plain at B={B} masked={masked}: "
-                  f"{int((alloc != alloc_p).any(1).sum())} rows differ")
-            lookahead_greedy(*args, total_units=U)          # warm-up
-            ms = cuda_ms(lambda: lookahead_greedy(*args, total_units=U), 20)
-            plain_ms = cuda_ms(
-                lambda: lookahead_greedy_plain(*args, total_units=U), 1)
-            curves, mins, active, rem = args
-            n_bytes = (curves.numel() * 8 + 4 * (mins.numel() + rem.numel()
-                       + active.numel() + alloc.numel() + bal.numel()))
-            n_ops = 2 * work["candidates"]   # one f64 sub + one div each
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = n_ops / FP64_OPS_PER_S * 1e3
-            rec = {"B": B, "masked": masked, "n": N_APPS, "U": U,
-                   "launches": LAUNCHES.count - launches0,
-                   "exact": True, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "trips": work["trips"],
-                   "candidates": work["candidates"], "bytes": n_bytes,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": None,
-                   "library_note": "no single PyTorch call computes the "
-                                   "Lookahead greedy"}
-            emit(card, phase="kernel", name="lookahead_greedy", **rec)
-            out[(B, masked)] = rec
+
+    def cases():
+        for B in shapes:
+            for masked in (False, True):
+                yield (B, masked), greedy_inputs(B, masked, seed=B + masked)
+        yield "sweep", sweep_boundary_inputs()
+
+    for key, args in cases():
+        B = args[0].shape[0]
+        masked = key == "sweep" or key[1]
+        launches0 = LAUNCHES.count
+        alloc, bal = lookahead_greedy(*args, total_units=U)
+        torch.cuda.synchronize()
+        work, plain = {}, []
+        plain_ms = cuda_ms(lambda: plain.append(lookahead_greedy_plain(
+            *args, total_units=U, work=work)), 1)
+        alloc_p, bal_p = plain[0]
+        err = max(int((alloc - alloc_p).abs().max()),
+                  int((bal - bal_p).abs().max()))
+        check(torch.equal(alloc, alloc_p) and torch.equal(bal, bal_p),
+              f"lookahead_greedy != plain at {key} (B={B}): "
+              f"{int((alloc != alloc_p).any(1).sum())} rows differ")
+        lookahead_greedy(*args, total_units=U)          # warm-up
+        ms = cuda_ms(lambda: lookahead_greedy(*args, total_units=U), 20)
+        n_bytes, n_ops = greedy_bound(args, U)
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / FP64_OPS_PER_S * 1e3
+        rec = {"inputs": "sweep boundary" if key == "sweep"
+               else "synthetic",
+               "B": B, "masked": masked, "n": N_APPS, "U": U,
+               "launches": LAUNCHES.count - launches0,
+               "exact": True, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "trips": work["trips"],
+               "plain_candidates": work["candidates"],
+               "bytes": n_bytes, "operations": n_ops,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes the "
+                               "Lookahead greedy"}
+        emit(card, phase="kernel", name="lookahead_greedy", **rec)
+        out[key] = rec
+        del alloc, bal, alloc_p, bal_p
     return out
 
 
@@ -759,6 +823,7 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
 
 
 def main() -> int:
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -798,7 +863,7 @@ def main() -> int:
         path_rows, path_counts = kernels_phase(card, record_knobs,
                                                full_knobs, budget)
 
-        main_rec = kern[(G * SCALE_MIXES, False)]
+        main_rec = kern["sweep"]
         kernels = [{
             "name": "lookahead_greedy",
             "route": "cuda",
@@ -811,9 +876,12 @@ def main() -> int:
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": None,
-            "shape": [G * SCALE_MIXES, N_APPS, TOTAL_UNITS + 1],
+            "shape": [main_rec["B"], N_APPS, TOTAL_UNITS + 1],
+            "inputs": "the 4096-mix sweep's first boundary",
+            "ms_synthetic": kern[(G * SCALE_MIXES, False)]["ms"],
             "launches_kernel_path": path_counts["lookahead_greedy"],
         }, *path_rows]
+        emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -1,4 +1,5 @@
-// UCP Lookahead greedy (paper §3.2.1) for Hopper: one thread block per row.
+// UCP Lookahead greedy (paper §3.2.1) for Hopper: one warp per row, each
+// client's best step cached between trips.
 //
 // Replaces the Pallas kernel `lookahead_greedy_rows` (body
 // `_lookahead_kernel`) in src/repro/kernels/lookahead_greedy/kernel.py.
@@ -15,144 +16,259 @@
 //   * mu is computed as (c[a+k] - c[a]) / (double)k: an IEEE division, no
 //     reciprocal multiply;
 //   * build without -use_fast_math;
-//   * the reduction keeps the first maximum: (mu, i*U + k-1) pairs compare
-//     by mu, then by the smaller flat index, which is the smaller client
-//     and, within it, the smaller k.
+//   * within a client the first maximum goes to the smallest k, across
+//     clients to the lowest index.
 //
-// What bounds it on an H100: the row's curve is read from device memory
-// once (n*(U+1)*8 bytes, 32.9 KB at n=16, U=256) and then lives in shared
-// memory, so the bytes are small; the work is the f64 divisions, one per
-// candidate step of every trip the row needs (up to U+1 trips of n*U
-// candidates).  The design spends the block's 256 threads on those
-// candidates (16 each at n=16, U=256), reads both curve points from shared
-// memory, and reduces with warp shuffles, so a trip costs two block
-// barriers and no device-memory traffic.  Rows are independent, so B
-// blocks fill the SMs for the batch sizes of a sweep (B = G * mixes).
+// What bounds it on an H100: neither bytes nor the FP64 rate but the
+// latency of the trips, each a chain of shared-memory reads, f64
+// divisions and warp reductions.  A row is up to U+1 serial trips (192 on
+// the sweep's ATD curves at n=16, U=256), and rows can only run side by
+// side as far as their curves fit in shared memory (32.9 KB a row there).
+// The Pallas kernel recomputes all n*U candidates every trip; on the card
+// that cost a 256-thread block per row three block barriers and a
+// two-level reduction a trip.
+//
+// The design shortens the trip.  Between trips only the stepped client's
+// position changes and the balance shrinks, so every other client's cached
+// first maximum (mu_i, k_i) stays exact while k_i <= min(balance,
+// remaining - a_i): the argmax over a prefix that still holds the old
+// argmax is unchanged (the invariant of the JAX package's `_greedy_loop`,
+// src/repro/core/cache_controller_jax.py).  Each row runs on one warp:
+//   * its curve is copied to shared memory once, with cp.async;
+//   * the cache is filled once (n*U divisions, lanes over k);
+//   * a trip picks the first maximum of the n cached entries, steps, and
+//     recomputes only the stepped client and any client whose k_i no
+//     longer fits its shrunken cap (lanes over k, up to min(balance,
+//     remaining - a) divisions each);
+//   * only a positive mu can be stepped, and positive doubles order as
+//     their bit patterns, so a first maximum over the warp is three
+//     hardware warp reductions of 32-bit words (the high word, the low
+//     word, the least index), not five rounds of shuffles of a (double,
+//     int) pair.  A client whose best mu is not positive can never step
+//     again (its position stays and its cap only shrinks) and is dropped.
+// A trip thus costs about U divisions and two warp reductions instead of
+// n*U divisions and three block barriers.  A block holds as many rows
+// (warps) as fit the SM's shared memory best (7 at n=16, U=256), warps
+// share no data and never wait on each other, and the grid is one
+// resident wave whose warps stride over the rows.
 //
 // Inputs must be finite curves, 0 <= min_units and n*min_units <= U; for
 // memory safety a step never reads past column min(remaining, U).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRowsPerBlock = 8;
 
-__device__ __forceinline__ bool better(double mu_a, int f_a, double mu_b,
-                                       int f_b) {
-  return mu_a > mu_b || (mu_a == mu_b && f_a < f_b);
+// Shared memory of one row: its curve n*(U+1), then per client the cached
+// best mu (double), the allocation a and the cached best k (int).  k = -1
+// marks a client that can never step again: inactive, its cap reached 0,
+// or its best mu not positive (caps only shrink).
+__host__ __device__ inline size_t row_bytes(int n, int U) {
+  const size_t b = (size_t)n * (U + 1) * sizeof(double) +
+                   (size_t)n * (sizeof(double) + 2 * sizeof(int));
+  return (b + 15) & ~(size_t)15;
 }
 
-__device__ __forceinline__ void warp_argmax(double& mu, int& f) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const double o_mu = __shfl_down_sync(0xffffffffu, mu, off);
-    const int o_f = __shfl_down_sync(0xffffffffu, f, off);
-    if (better(o_mu, o_f, mu, f)) {
-      mu = o_mu;
-      f = o_f;
-    }
+// First maximum over the warp of the lanes' (mu, i), among positive mu
+// only: positive doubles order as their bit patterns, so it is a maximum
+// of the high words, then of the low words among the lanes that hold the
+// high one, then the least i among the lanes that hold both (three warp
+// reductions in hardware).  Every lane returns the winning (mu, i), or
+// (-inf, -1) if no lane holds a positive mu.
+__device__ __forceinline__ void first_max(double& mu, int& i) {
+  const unsigned long long key =
+      mu > 0.0 ? (unsigned long long)__double_as_longlong(mu) : 0ull;
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned top_hi = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned top_lo =
+      __reduce_max_sync(0xffffffffu, hi == top_hi ? lo : 0u);
+  const bool wins = key != 0ull && hi == top_hi && lo == top_lo;
+  const unsigned top_i =
+      __reduce_min_sync(0xffffffffu, wins ? (unsigned)i : 0xffffffffu);
+  if ((top_hi | top_lo) == 0u) {
+    mu = -CUDART_INF;
+    i = -1;
+  } else {
+    mu = __longlong_as_double(
+        (long long)(((unsigned long long)top_hi << 32) | top_lo));
+    i = (int)top_i;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lookahead_greedy_kernel(const double* __restrict__ curves,
-                        const int* __restrict__ min_units,
-                        const int* __restrict__ active,
-                        const int* __restrict__ remaining,
-                        int* __restrict__ alloc_out,
-                        int* __restrict__ balance_out, int n, int U) {
-  extern __shared__ double smem[];
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Client i's first maximum over k in [1, cap] (cap >= 1) from position a:
+// lanes take k = lane+1, lane+33, ...; every lane returns (mu, k), or
+// (-inf, -1) if no step has a positive mu.
+__device__ __forceinline__ void client_best(const double* c, int cap,
+                                            int lane, double& mu, int& k) {
+  const double base = c[0];
+  mu = -CUDART_INF;
+  k = INT_MAX;
+  for (int kk = lane + 1; kk <= cap; kk += 32) {  // k rises: first max
+    const double m = (c[kk] - base) / (double)kk;
+    if (m > mu) {
+      mu = m;
+      k = kk;
+    }
+  }
+  first_max(mu, k);
+}
+
+__global__ void lookahead_greedy_kernel(const double* __restrict__ curves,
+                                        const int* __restrict__ min_units,
+                                        const int* __restrict__ active,
+                                        const int* __restrict__ remaining,
+                                        int* __restrict__ alloc_out,
+                                        int* __restrict__ balance_out, int B,
+                                        int n, int U) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int U1 = U + 1;
-  double* curve = smem;                                            // n*(U+1)
-  int* s_alloc = reinterpret_cast<int*>(curve + (size_t)n * U1);   // n
-  int* s_cap = s_alloc + n;                                        // n
-  int* s_active = s_cap + n;                                       // n
-  __shared__ double warp_mu[kWarps];
-  __shared__ int warp_f[kWarps];
-  __shared__ int s_balance;
-  __shared__ int s_stuck;
+  double* curve = reinterpret_cast<double*>(smem + warp * row_bytes(n, U));
+  double* s_mu = curve + (size_t)n * U1;                  // n
+  int* s_alloc = reinterpret_cast<int*>(s_mu + n);        // n
+  int* s_k = s_alloc + n;                                 // n
 
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const double* src = curves + (size_t)row * n * U1;
-  for (int j = tid; j < n * U1; j += kThreads) curve[j] = src[j];
-  const int min_u = min_units[row];
-  const int top = min(remaining[row], U);
-  for (int i = tid; i < n; i += kThreads) {
-    s_alloc[i] = min_u;
-    s_active[i] = active[(size_t)row * n + i] != 0;
-  }
-  if (tid == 0) {
-    s_balance = U - n * min_u;
-    s_stuck = 0;
-  }
-  __syncthreads();
-
-  const int n_cand = n * U;
-  // Each trip allocates >= 1 unit or retires the row: <= U + 1 trips.
-  for (int trip = 0; trip <= U; ++trip) {
-    const int balance = s_balance;  // block-uniform: read after a barrier
-    if (balance <= 0 || s_stuck) break;
-    for (int i = tid; i < n; i += kThreads) {
-      const int a = s_alloc[i];
-      s_cap[i] = (s_active[i] && a >= 0) ? min(balance, top - a) : 0;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  for (int row = blockIdx.x * (blockDim.x >> 5) + warp; row < B;
+       row += warps) {
+    const double* src = curves + (size_t)row * n * U1;
+    for (int j = lane; j < n * U1; j += 32) cp_async8(curve + j, src + j);
+    const int min_u = min_units[row];
+    const int top = min(remaining[row], U);
+    int balance = U - n * min_u;
+    for (int i = lane; i < n; i += 32) {
+      s_alloc[i] = min_u;
+      s_k[i] = (active[(size_t)row * n + i] != 0 && min_u >= 0) ? 0 : -1;
     }
-    __syncthreads();
+    cp_async_wait_all();
+    __syncwarp();
 
-    double best_mu = -CUDART_INF;
-    int best_f = INT_MAX;
-    for (int f = tid; f < n_cand; f += kThreads) {  // f rises: first max
-      const int i = f / U;
-      const int k = f - i * U + 1;
-      if (k <= s_cap[i]) {
-        const double* c = curve + (size_t)i * U1 + s_alloc[i];
-        const double mu = (c[k] - c[0]) / (double)k;
-        if (mu > best_mu) {
-          best_mu = mu;
-          best_f = f;
+    if (balance > 0) {
+      // Fill the cache: every live client's first maximum.
+      for (int i = 0; i < n; ++i) {
+        const int cap = min(balance, top - min_u);
+        double mu = -CUDART_INF;
+        int k = -1;
+        if (s_k[i] >= 0 && cap > 0)
+          client_best(curve + (size_t)i * U1 + min_u, cap, lane, mu, k);
+        __syncwarp();
+        if (lane == 0) {
+          s_mu[i] = mu;
+          s_k[i] = k;
         }
       }
-    }
-    warp_argmax(best_mu, best_f);
-    if (lane == 0) {
-      warp_mu[warp] = best_mu;
-      warp_f[warp] = best_f;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best_mu = lane < kWarps ? warp_mu[lane] : -CUDART_INF;
-      best_f = lane < kWarps ? warp_f[lane] : INT_MAX;
-      warp_argmax(best_mu, best_f);
-      if (lane == 0) {
-        if (best_mu > 0.0) {
-          const int i = best_f / U;
-          const int k = best_f - i * U + 1;
-          s_alloc[i] += k;
-          s_balance = balance - k;
-        } else {
-          s_stuck = 1;
+      __syncwarp();
+
+      // Each trip allocates >= 1 unit or retires the row: <= U + 1 trips.
+      for (int trip = 0; trip <= U; ++trip) {
+        double mu = -CUDART_INF;
+        int i_sel = -1;
+        for (int i = lane; i < n; i += 32) {  // i rises: first max
+          if (s_k[i] > 0 && s_mu[i] > mu) {
+            mu = s_mu[i];
+            i_sel = i;
+          }
         }
+        first_max(mu, i_sel);
+        if (i_sel < 0) break;  // no positive mu: retire the row
+        const int k_sel = s_k[i_sel];
+        balance -= k_sel;
+        __syncwarp();
+        if (lane == (i_sel & 31)) s_alloc[i_sel] += k_sel;
+        if (balance <= 0) break;
+        __syncwarp();
+
+        // Refresh the stepped client and every client whose cached k no
+        // longer fits its cap; the rest stay exact.
+        for (int c0 = 0; c0 < n; c0 += 32) {
+          const int i = c0 + lane;
+          bool stale = false;
+          if (i < n && s_k[i] > 0)
+            stale = i == i_sel || s_k[i] > min(balance, top - s_alloc[i]);
+          unsigned mask = __ballot_sync(0xffffffffu, stale);
+          while (mask) {
+            const int j = c0 + __ffs(mask) - 1;
+            mask &= mask - 1;
+            const int a = s_alloc[j];
+            const int cap = min(balance, top - a);
+            double mu_j = -CUDART_INF;
+            int k_j = -1;
+            if (cap > 0)
+              client_best(curve + (size_t)j * U1 + a, cap, lane, mu_j, k_j);
+            __syncwarp();
+            if (lane == 0) {
+              s_mu[j] = mu_j;
+              s_k[j] = k_j;
+            }
+          }
+        }
+        __syncwarp();
       }
     }
-    __syncthreads();
+
+    for (int i = lane; i < n; i += 32)
+      alloc_out[(size_t)row * n + i] = s_alloc[i];
+    if (lane == 0) balance_out[row] = balance;
+    __syncwarp();  // the next row's copy overwrites this row's shared data
   }
-  for (int i = tid; i < n; i += kThreads)
-    alloc_out[(size_t)row * n + i] = s_alloc[i];
-  if (tid == 0) balance_out[row] = s_balance;
+}
+
+// Rows per block (warps) that keep the most rows resident per SM, ties to
+// fewer, for rows of `bytes` shared memory; and how many such blocks the
+// card holds at once.
+int configure(size_t bytes, int& rows, int& blocks) {
+  int dev, optin, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(lookahead_greedy_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin);
+  if (e != cudaSuccess) return (int)e;
+  rows = blocks = 0;
+  for (int r = 1; r <= kMaxRowsPerBlock && r * bytes <= (size_t)optin; ++r) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lookahead_greedy_kernel, 32 * r, r * bytes);
+    if (e != cudaSuccess) return (int)e;
+    if (r * per_sm > rows * (blocks / sms)) {
+      rows = r;
+      blocks = per_sm * sms;
+    }
+  }
+  return blocks > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` over B rows; returns cudaGetLastError()
-// (0 on success).  Pointers are device pointers; curves is (B, n, U+1)
-// float64, min_units and remaining (B,) int32, active (B, n) int32, alloc
-// (B, n) int32 and balance (B,) int32, all C-contiguous.
+// Launches the kernel on `stream` over B rows; returns a cudaError_t (0 on
+// success).  Pointers are device pointers; curves is (B, n, U+1) float64,
+// min_units and remaining (B,) int32, active (B, n) int32, alloc (B, n)
+// int32 and balance (B,) int32, all C-contiguous.  One row's curve must fit
+// a block's shared memory: 8*n*(U+1) + 16*n bytes <= 232,448 on an H100.
 extern "C" int lookahead_greedy_launch(const double* curves,
                                        const int* min_units,
                                        const int* active,
@@ -160,17 +276,16 @@ extern "C" int lookahead_greedy_launch(const double* curves,
                                        int* balance, int B, int n, int U,
                                        void* stream) {
   if (B <= 0) return 0;
-  const size_t smem =
-      (size_t)n * (U + 1) * sizeof(double) + 3 * (size_t)n * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lookahead_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  lookahead_greedy_kernel<<<B, kThreads, smem,
+  if (n <= 0 || U <= 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = row_bytes(n, U);
+  int rows, blocks;
+  const int err = configure(bytes, rows, blocks);
+  if (err != 0) return err;
+  rows = std::min(rows, B);
+  blocks = std::min((B + rows - 1) / rows, blocks);
+  lookahead_greedy_kernel<<<blocks, 32 * rows, rows * bytes,
                             static_cast<cudaStream_t>(stream)>>>(
-      curves, min_units, active, remaining, alloc, balance, n, U);
+      curves, min_units, active, remaining, alloc, balance, B, n, U);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 LAUNCHES = LaunchCounter("flash_decode")
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256   # 8 dims per lane of a warp (csrc: kMaxPerLane)
+MAX_HEAD_DIM = 256   # csrc: kMaxHeadDim
 _MAX_GRID_Y = 65535
 
 

@@ -1,9 +1,10 @@
 """UCP Lookahead greedy: the CUDA kernel's wrapper and its plain version.
 
 :func:`lookahead_greedy` is the port of the Pallas kernel
-``repro.kernels.lookahead_greedy.kernel.lookahead_greedy_rows``: one
-thread block per row of a ``(B, n, U+1)`` float64 curve batch, written in
-CUDA C++ (``src/repro_torch/csrc/lookahead_greedy.cu``) and bound through
+``repro.kernels.lookahead_greedy.kernel.lookahead_greedy_rows``: one warp
+per row of a ``(B, n, U+1)`` float64 curve batch, each client's best step
+cached between trips, written in CUDA C++
+(``src/repro_torch/csrc/lookahead_greedy.cu``) and bound through
 ``ctypes``.  For a CUDA tensor it launches that kernel or raises; only a
 tensor on the CPU goes to :func:`lookahead_greedy_plain`, the batched
 trip loop that mirrors ``_lookahead_kernel`` op for op.

@@ -93,6 +93,135 @@ def greedy_curves(rng, B: int, n: int, U: int, kind: str) -> np.ndarray:
     return np.zeros((B, n, U + 1))
 
 
+#: Greedy edge cases, shared by the CPU test against the JAX Pallas kernel
+#: and the card test of the CUDA kernel: exact ties, cached best steps that
+#: the shrinking balance invalidates, ``remaining < U``, all-inactive rows,
+#: ``min_units`` 0 and ``n * min_units = U``, B = 1, B not a multiple of the
+#: rows a thread block holds, and more than 32 clients.
+GREEDY_EDGE_CASES = ("ties_linear", "ties_flat", "invalidated", "steps",
+                     "remaining_lt_U", "all_inactive", "min_zero",
+                     "min_full", "b1", "b_odd", "b_odd_wide", "n_over_32")
+
+
+def _linear(slopes, U: int, offsets=None) -> np.ndarray:
+    """(n, U+1) straight lines; slopes and offsets in quarters, so every
+    marginal utility is exact and equal along a line."""
+    u = np.arange(U + 1, dtype=np.float64)
+    slopes = np.asarray(slopes, dtype=np.float64)[:, None]
+    off = 0.0 if offsets is None else np.asarray(offsets, np.float64)[:, None]
+    return off + slopes * u
+
+
+def _ramp(slope: float, knee: int, tail: float, U: int) -> np.ndarray:
+    """``slope`` per unit up to ``knee`` units, ``tail`` per unit after."""
+    u = np.arange(U + 1, dtype=np.float64)
+    return np.where(u <= knee, slope * u, slope * knee + tail * (u - knee))
+
+
+def _jump(height: float, at: int, U: int) -> np.ndarray:
+    """Flat, then ``height`` from ``at`` units on: the best step is k = at."""
+    return np.where(np.arange(U + 1) >= at, height, 0.0)
+
+
+def _steps(rng, B: int, n: int, U: int) -> np.ndarray:
+    """Sparse integer jumps: large best steps and many exact ties."""
+    jumps = ((rng.random((B, n, U)) < 0.08)
+             * rng.integers(1, 20, (B, n, U))).astype(np.float64)
+    return np.concatenate([np.zeros((B, n, 1)), np.cumsum(jumps, -1)], -1)
+
+
+def greedy_edge_inputs(name: str):
+    """``(curves (B, n, U+1) f64, min_units (B,) i32, active (B, n) i32,
+    remaining (B,) i32, U)`` of one case of :data:`GREEDY_EDGE_CASES`;
+    ``remaining`` is the capacity left after pinning the inactive clients,
+    as CPpf passes it, unless the case sets it."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    active = remaining = None
+    if name == "ties_linear":
+        U = 48
+        curves = np.stack([
+            _linear([1, 1, 1, 1, 1, 1], U),
+            _linear([0.5, 1, 1, 0.25, 1, 0.5], U),
+            _linear([0.75, 0.75, 0.5, 0.75, 0.25, 0.75], U,
+                    offsets=[3, 0, 1.5, -2, 0, 7]),
+            np.stack([_ramp(1.0, 8, 0.5, U), _ramp(1.0, 8, 0.5, U),
+                      _ramp(0.5, 40, 0.25, U), _ramp(1.0, 3, 0.5, U),
+                      _linear([0.5], U)[0], _ramp(0.75, 10, 0.5, U)])])
+        mins = np.full(4, 2)
+    elif name == "ties_flat":
+        U = 48
+        flat = np.full((6, U + 1), 7.0)
+        mixed = flat.copy()
+        mixed[[1, 3, 5]] = _linear([0.5, 0.5, 0.5], U)
+        pair = np.zeros((6, U + 1))
+        pair[[1, 4]] = _linear([0.5, 0.5], U)
+        curves = np.stack([flat, mixed, np.zeros((6, U + 1)), pair])
+        mins = np.array([1, 1, 0, 3])
+    elif name == "invalidated":
+        U = 48
+        curves = np.stack([
+            np.stack([_jump(100.0, 40, U), _ramp(3.0, 20, 0.125, U),
+                      _ramp(2.5, 5, 0.0, U)]),
+            np.stack([_jump(90.0, 30, U), _ramp(3.5, 24, 0.25, U),
+                      _ramp(3.25, 10, 0.0, U)]),
+            np.stack([_ramp(2.0, 12, 0.0, U), _jump(45.0, 15, U),
+                      _jump(47.0, 16, U)])])
+        mins = np.zeros(3)
+    elif name == "steps":
+        U = 64
+        curves = _steps(rng, 6, 8, U)
+        mins = rng.integers(0, 3, 6)
+    elif name == "remaining_lt_U":
+        U = 64
+        curves = greedy_curves(rng, 6, 8, U, "concave")
+        mins = np.full(6, 2)
+        active = rng.integers(0, 2, (6, 8))
+        remaining = rng.integers(17, U, 6)
+    elif name == "all_inactive":
+        U = 64
+        curves = greedy_curves(rng, 4, 8, U, "nonmonotone")
+        mins = np.full(4, 2)
+        active = rng.integers(0, 2, (4, 8))
+        active[[0, 2]] = 0
+    elif name == "min_zero":
+        U = 64
+        curves = np.concatenate([greedy_curves(rng, 2, 8, U, "nonmonotone"),
+                                 _steps(rng, 2, 8, U)])
+        mins = np.zeros(4)
+    elif name == "min_full":
+        U = 64
+        curves = greedy_curves(rng, 3, 8, U, "concave")
+        mins = np.array([8, 8, 7])
+    elif name == "b1":
+        U = 256
+        curves = greedy_curves(rng, 1, 16, U, "concave")
+        mins = np.full(1, 4)
+    elif name == "b_odd":
+        U = 40
+        curves = greedy_curves(rng, 13, 5, U, "nonmonotone")
+        mins = np.ones(13)
+    elif name == "b_odd_wide":
+        U = 256
+        curves = np.concatenate([greedy_curves(rng, 5, 16, U, "concave"),
+                                 greedy_curves(rng, 5, 16, U, "nonmonotone")])
+        mins = np.full(10, 4)
+        active = rng.integers(0, 2, (10, 16))
+    elif name == "n_over_32":
+        U = 120
+        curves = np.concatenate([greedy_curves(rng, 2, 40, U, "nonmonotone"),
+                                 _steps(rng, 1, 40, U)])
+        mins = np.ones(3)
+    else:
+        raise KeyError(name)
+    B, n, _ = curves.shape
+    mins = np.asarray(mins, dtype=np.int32)
+    active = (np.ones((B, n)) if active is None else active).astype(np.int32)
+    if remaining is None:
+        remaining = U - mins * (n - active.sum(-1))
+    return (curves.astype(np.float64), mins, active,
+            np.asarray(remaining, dtype=np.int32), U)
+
+
 # --------------------------------------------------------------------- #
 # cases (run inside the float64 subprocess)
 # --------------------------------------------------------------------- #
@@ -131,6 +260,13 @@ def _case_lookahead(out: dict) -> None:
                     f"{key}_alloc": np.asarray(alloc),
                     f"{key}_balance": np.asarray(bal),
                     f"{key}_full": full})
+    for name in GREEDY_EDGE_CASES:
+        curves, mins, active, remaining, U = greedy_edge_inputs(name)
+        alloc, bal = ops.lookahead_greedy(
+            jnp.asarray(curves), jnp.asarray(mins), jnp.asarray(active),
+            jnp.asarray(remaining), total_units=U)
+        out[f"edge_{name}_alloc"] = np.asarray(alloc)
+        out[f"edge_{name}_balance"] = np.asarray(bal)
 
 
 def memsys_inputs(rng):

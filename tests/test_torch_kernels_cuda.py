@@ -1,5 +1,5 @@
-"""The kernel-level path's CUDA kernels against their plain versions, on
-the card.
+"""The CUDA kernels against their plain versions, on the card: the
+Lookahead greedy's edge cases and the kernel-level path's kernels.
 
 Every test here needs an NVIDIA card and ``nvcc`` (the kernels have no
 CPU interpret mode): each carries the ``cuda`` marker and skips without a
@@ -10,7 +10,8 @@ card.  Run them on the card with
 The file imports neither JAX nor the JAX package, which the card's
 machine does not have; the CPU comparisons with the JAX package are in
 ``tests/test_torch_{planner,matmul,attention,decode,ssd}.py``.
-The limits are those of ``repro_torch.kernels.tolerance``: in f32 atol =
+The greedy must equal its plain version exactly.  The float kernels'
+limits are those of ``repro_torch.kernels.tolerance``: in f32 atol =
 rtol = 2e-5 (attention, decode), 1e-4 (matmul), 2e-4 (SSD against the
 sequential recurrence); in bf16 rtol = 2^-7 (one bf16 ulp of the element)
 and atol = the f32 tolerance times the largest output.
@@ -20,7 +21,11 @@ import ctypes
 import numpy as np
 import pytest
 import torch
-from _torch_jax_ref import PLANNER_SPECS
+from _torch_jax_ref import (
+    GREEDY_EDGE_CASES,
+    PLANNER_SPECS,
+    greedy_edge_inputs,
+)
 
 from repro_torch.core.dispatch import launch_counts, reset_launch_counts
 from repro_torch.kernels import build
@@ -34,6 +39,10 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.lookahead_greedy import (
+    lookahead_greedy,
+    lookahead_greedy_plain,
+)
 from repro_torch.kernels.ssd_scan import smem_bytes, ssd_scan, ssd_scan_plain
 from repro_torch.kernels.tolerance import limits
 from repro_torch.runtime import cbp_runtime as rt
@@ -68,6 +77,20 @@ def _launched_once(name, fn):
     torch.cuda.synchronize()
     assert launch_counts()[name] == 1
     return out
+
+
+@pytest.mark.parametrize("name", GREEDY_EDGE_CASES)
+def test_greedy_kernel_equals_plain_on_edge_cases(card, name):
+    """Ties, cached best steps invalidated by the shrinking balance,
+    remaining < U, all-inactive rows, min_units 0 and n * min_units = U,
+    B = 1, B not a multiple of a block's rows, n > 32: bit for bit."""
+    curves, mins, active, rem, U = (
+        torch.as_tensor(x, device=card) if isinstance(x, np.ndarray) else x
+        for x in greedy_edge_inputs(name))
+    alloc, bal = _launched_once("lookahead_greedy", lambda: lookahead_greedy(
+        curves, mins, active, rem, total_units=U))
+    want = lookahead_greedy_plain(curves, mins, active, rem, total_units=U)
+    assert torch.equal(alloc, want[0]) and torch.equal(bal, want[1])
 
 
 def test_planner_on_the_card_one_launch_per_capacity_group(card):
@@ -156,6 +179,63 @@ def test_decode_kernel_equals_plain(card, cur_len, dtype, block_kv):
            flash_decode_plain(q, kc, vc, lens, block_kv=block_kv))
     if cur_len == 0:
         assert not got.float().abs().sum()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block_kv", [64, 128, 512, 2048])
+@pytest.mark.parametrize("dh", [64, 96, 128, 256])
+@pytest.mark.parametrize("cur_len", [1, 7, 129, 2047])
+def test_decode_kernel_equals_plain_across_head_dims(card, cur_len, dh,
+                                                     block_kv, dtype):
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (1, 3, dh), dtype, card)
+    kc, vc = (_randn(rng, (1, 3, 2048, dh), dtype, card) for _ in range(2))
+    got = _launched_once("flash_decode", lambda: flash_decode(
+        q, kc, vc, cur_len, block_kv=block_kv))
+    _close("flash_decode", got,
+           flash_decode_plain(q, kc, vc, cur_len, block_kv=block_kv))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh,cur_len", [(64, 77), (128, 131), (96, 1029),
+                                        (256, 333), (33, 45)])
+def test_decode_never_reads_the_poisoned_tail(card, dh, cur_len, dtype):
+    """NaN past cur_len would reach the output if a key there were loaded;
+    cur_len falls inside a group of keys that share a warp load."""
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (2, 2, dh), dtype, card)
+    kc, vc = (_randn(rng, (2, 2, 1024 + 256, dh), dtype, card)
+              for _ in range(2))
+    want = flash_decode_plain(q, kc, vc, cur_len, block_kv=128)
+    clean = flash_decode(q, kc, vc, cur_len, block_kv=128)
+    kc[:, :, cur_len:], vc[:, :, cur_len:] = float("nan"), float("nan")
+    got = flash_decode(q, kc, vc, cur_len, block_kv=128)
+    assert torch.equal(got, clean)
+    _close("flash_decode", got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_reads_a_cache_that_is_not_16_byte_aligned(card, dtype):
+    """A contiguous cache one element into its storage cannot take 16-byte
+    loads; the kernel reads it an element a lane."""
+    rng = np.random.default_rng(7)
+    shape = (2, 2, 512, 128)
+    q = _randn(rng, (2, 2, 128), dtype, card)
+    kc, vc = (torch.cat([torch.zeros(1, dtype=dtype, device=card),
+                         _randn(rng, shape, dtype, card).flatten()])[1:]
+              .view(shape) for _ in range(2))
+    assert kc.is_contiguous() and kc.data_ptr() % 16
+    got = _launched_once("flash_decode", lambda: flash_decode(
+        q, kc, vc, 300, block_kv=128))
+    _close("flash_decode", got, flash_decode_plain(q, kc, vc, 300,
+                                                   block_kv=128))
+
+
+def test_decode_refuses_a_head_dim_past_its_limit(card):
+    q = torch.zeros(1, 1, 264, device=card)
+    kc = torch.zeros(1, 1, 64, 264, device=card)
+    with pytest.raises(ValueError, match="256"):
+        flash_decode(q, kc, kc, 10, block_kv=64)
 
 
 def test_decode_takes_a_python_int_and_ignores_the_tail(card):

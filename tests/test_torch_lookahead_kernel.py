@@ -7,15 +7,19 @@ on concave, nonmonotone and flat curves, plain and masked; the full
 allocation (greedy + spread) must equal the numpy goldens
 ``lookahead_allocate`` / ``cppf_allocate``.  Random float curves make
 exact marginal-utility ties measure-zero, so equality is exact.  The CUDA
-kernel itself runs only on the card (``-m cuda``).
+kernel itself runs only on the card (``-m cuda``); the edge cases it is
+held to there (``GREEDY_EDGE_CASES``) are held here to the Pallas kernel
+and the oracle.
 """
 import numpy as np
 import pytest
 import torch
 from _torch_jax_ref import (
+    GREEDY_EDGE_CASES,
     GREEDY_KINDS,
     GREEDY_SHAPES,
     greedy_curves,
+    greedy_edge_inputs,
     jax_reference,
 )
 
@@ -90,6 +94,33 @@ def test_allocation_equals_jax_and_numpy_golden(jax_ref, kind, masked,
                 if masked else
                 golden.lookahead_allocate(curves[b], U, int(mins[b])))
         np.testing.assert_array_equal(got[b], want)
+
+
+@pytest.mark.parametrize("name", GREEDY_EDGE_CASES)
+def test_plain_greedy_equals_jax_pallas_kernel_on_edge_cases(jax_ref, name):
+    """The edge cases the card tests hold the CUDA kernel to: the plain
+    version, its oracle there, equals the Pallas kernel on them."""
+    curves, mins, active, rem, U = greedy_edge_inputs(name)
+    alloc, bal = lookahead_greedy_plain(
+        torch.as_tensor(curves), torch.as_tensor(mins),
+        torch.as_tensor(active), torch.as_tensor(rem), total_units=U)
+    np.testing.assert_array_equal(alloc.numpy(),
+                                  jax_ref[f"edge_{name}_alloc"])
+    np.testing.assert_array_equal(bal.numpy(),
+                                  jax_ref[f"edge_{name}_balance"])
+
+
+@pytest.mark.parametrize("name", GREEDY_EDGE_CASES)
+def test_plain_greedy_equals_numpy_oracle_on_edge_cases(name):
+    curves, mins, active, rem, U = greedy_edge_inputs(name)
+    alloc, bal = lookahead_greedy_plain(
+        torch.as_tensor(curves), torch.as_tensor(mins),
+        torch.as_tensor(active), torch.as_tensor(rem), total_units=U)
+    for b in range(curves.shape[0]):
+        want_alloc, want_bal = greedy_ref(curves[b], int(mins[b]),
+                                          active[b] != 0, int(rem[b]), U)
+        np.testing.assert_array_equal(alloc[b].numpy(), want_alloc)
+        assert int(bal[b]) == want_bal
 
 
 def test_lookahead_allocate_plain_equals_golden():
