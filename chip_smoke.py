@@ -51,9 +51,12 @@ under the planned knobs:
              version) and at full width, planned against default knobs,
              within the limits of ``repro_torch.kernels.tolerance``; and
              times of kernel, plain version and the PyTorch library call
-             beside each kernel's bound.  Edge cases (ragged matmul dims,
-             m < 8, cur_len 0, Sq != Sk, not causal) are the card tests'
-             (``pytest -m cuda``).
+             beside each kernel's bound.  ``cbp_matmul`` also runs in
+             float32 at full width (3xTF32 on the tensor cores), held to
+             its plain version at the f32 tolerance and timed beside
+             ``torch.matmul`` in float32 with TF32 off.  Edge cases
+             (ragged matmul dims, m < 8, cur_len 0, Sq != Sk, not causal)
+             are the card tests' (``pytest -m cuda``).
 
 Every phase prints one JSON line with the card's name and power limit,
 and a last ``done`` line gives the script's seconds; then comes the
@@ -92,9 +95,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 
 #: Dense peak rates of the same data sheet for the kernel-level path: bf16
-#: on the tensor cores, and float32 on the CUDA cores (the f32 products are
-#: not run as TF32).
+#: and TF32 on the tensor cores, and float32 on the CUDA cores.  The
+#: matmul's f32 product is three TF32 products (3xTF32), so its bound is
+#: 3 x 2MNK at the TF32 rate; the other kernels' f32 work runs on the CUDA
+#: cores.
 BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
 FP32_OPS_PER_S = 67e12
 
 #: The four specs of ``benchmarks/kernel_bench.py::kernel_block_plan_bench``
@@ -656,6 +662,8 @@ def kernel_work(name: str, args, kw: dict):
     if name == "cbp_matmul":
         a, b = args
         (M, K), N = a.shape, b.shape[1]
+        if a.dtype == torch.float32:
+            rate = TF32_TC_OPS_PER_S / 3
         return (a.numel() + b.numel() + M * N) * elt, 2 * M * N * K, rate
     if name == "flash_attention":
         q, k, v = args
@@ -721,6 +729,41 @@ def drive_kernel_path(full: dict, budget: int):
     return knobs, outs, launch_counts()
 
 
+def matmul_f32_full(card: str, gen, kn_a: dict) -> float:
+    """``cbp_matmul`` in float32 at the full-width shape, planned knobs (a)
+    and defaults (b), against its plain version at the f32 tolerance, and
+    timed beside ``torch.matmul`` in float32 (TF32 off, as stated on the
+    line).  Returns the larger error."""
+    import torch
+
+    kfn, pfn = kernel_fns("cbp_matmul")
+    args = (torch.randn(4096, 4096, generator=gen, device="cuda"),
+            torch.randn(4096, 12288, generator=gen, device="cuda"))
+    kn_b = default_knobs("cbp_matmul")
+    plain = pfn(*args)
+    out_a, out_b = kfn(*args, **kn_a), kfn(*args, **kn_b)
+    torch.cuda.synchronize()
+    what = "full width f32, knobs"
+    err = max(compare("cbp_matmul", out_a, plain, what + " (a)"),
+              compare("cbp_matmul", out_b, plain, what + " (b)"))
+    del out_a, out_b, plain
+    n_bytes, n_ops, rate = kernel_work("cbp_matmul", args, {})
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / rate * 1e3
+    emit(card, phase="kernels", name="cbp_matmul", case="full_f32",
+         shape=[list(t.shape) for t in args], dtype="float32",
+         knobs_a=kn_a, knobs_b=kn_b,
+         ms=time_ms(lambda: kfn(*args, **kn_a)),
+         ms_b=time_ms(lambda: kfn(*args, **kn_b)),
+         plain_ms=time_ms(lambda: pfn(*args)),
+         library_ms=time_ms(lambda: torch.matmul(*args)),
+         library_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         bytes=n_bytes, operations=n_ops, bound_ms=max(t_bytes, t_ops),
+         bound_by="bytes" if t_bytes >= t_ops else "operations",
+         max_abs_err=err)
+    return err
+
+
 def kernels_phase(card: str, record_knobs, full_knobs, budget):
     """Drive the path, then hold every kernel to its plain version and
     time it; returns the rows of the ``kernels`` line and the path's
@@ -784,6 +827,9 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
             emit(card, phase="kernels", name=name, case="full", **rec)
             rows.setdefault(name, rec)
 
+    errs["cbp_matmul"] = max(errs["cbp_matmul"],
+                             matmul_f32_full(card, gen, knobs_a[0]))
+
     # The record's shapes (f32): planned and default knobs, against the
     # plain version on the card and on the CPU.
     rec_in = record_inputs(gen)
@@ -803,12 +849,16 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
                   compare(name, out_a, plain_cpu, "record vs CPU plain"))
         compare(name, out_a, out_b, "record, planned vs default")
         errs[name] = max(errs[name], err)
+        lib = library_call(name, args, kw)
         emit(card, phase="kernels", name=name, case="record", knobs=kn,
+             knobs_b=default_knobs(name),
              shape=[list(t.shape) for t in args
                     if isinstance(t, torch.Tensor)],
              max_abs_err=err,
              ms=time_ms(lambda: kfn(*args, **kw, **kn)),
-             plain_ms=time_ms(lambda: pfn(*args, **kw)))
+             ms_b=time_ms(lambda: kfn(*args, **kw, **default_knobs(name))),
+             plain_ms=time_ms(lambda: pfn(*args, **kw)),
+             library_ms=time_ms(lib) if lib is not None else None)
 
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/{name}.cu",

@@ -4,8 +4,10 @@ from repro_torch.kernels.cbp_matmul.ops import (
     LAUNCHES,
     cbp_matmul,
     cbp_matmul_plain,
+    ring_stages,
     smem_footprint_bytes,
+    tma_loads,
 )
 
-__all__ = ["LAUNCHES", "cbp_matmul", "cbp_matmul_plain",
-           "smem_footprint_bytes"]
+__all__ = ["LAUNCHES", "cbp_matmul", "cbp_matmul_plain", "ring_stages",
+           "smem_footprint_bytes", "tma_loads"]

@@ -4,10 +4,24 @@
 ``repro.kernels.cbp_matmul.kernel.cbp_matmul``: ``(M, K) @ (K, N)`` with
 the planner's ``(block_m, block_n, block_k)`` knobs, an f32 accumulator
 and the output in the input dtype (float32 or bfloat16), written in CUDA
-C++ (``src/repro_torch/csrc/cbp_matmul.cu``).  A thread block owns one
-``block_m x block_n`` output region and strides k by ``block_k``; the
-ragged edge is masked in the kernel, so any positive knobs run, including
-the planner's pad-aware blocks for dims with no aligned divisor.
+C++ for Hopper (``src/repro_torch/csrc/cbp_matmul.cu``): one tensor-core
+kernel (``wgmma`` fed by a ring of shared-memory stages), bf16 directly
+and float32 as three TF32 products (3xTF32, f32 accuracy).
+
+The knobs keep their meaning:
+
+* ``block_m x block_n`` is the output region one thread block owns; it
+  walks the region in 128 x 128 tiles and masks what lies past the region
+  or the matrix, so any positive knobs run, including the planner's
+  pad-aware blocks for dims with no aligned divisor;
+* ``block_k`` is the k depth kept in flight: the ring has
+  ``S = clamp(ceil(block_k / 32), 2, the stages that fit in 232,448
+  bytes)`` stages of 32 k each (at most 14 in bf16, 4 in float32, whose
+  TF32 split tiles take 96 KiB).
+
+Tiles are loaded by TMA when both bases and both row strides (``K`` and
+``N`` elements) are multiples of 16 bytes (:func:`tma_loads`), else by the
+producer threads into the same layouts, in the same kernel.
 
 For a CUDA tensor it launches that kernel or raises; only tensors on the
 CPU go to :func:`cbp_matmul_plain`.
@@ -22,19 +36,51 @@ from repro_torch.kernels import build
 #: Launches of the CUDA kernel (not of the plain version).
 LAUNCHES = LaunchCounter("cbp_matmul")
 
-_SUB = 64     # output sub-tile edge of a thread block (csrc: kSub)
-_CHUNK = 32   # k extent staged through shared memory at once (kChunk)
+_TILE = 128        # output tile edge of the kernel (csrc: kTile)
+_KT = 32           # k depth of one ring stage (kT)
+_BAR_BYTES = 16    # the two mbarriers of a stage
+_MAX_SMEM = 232448  # shared memory one block may use on an H100
+#: The float32 TF32 split tiles: 2 consumer warpgroups x (64 rows of A +
+#: 128 rows of B) x kT x (hi, lo) x 4 bytes.
+_SPLIT_F32 = 2 * (64 + _TILE) * _KT * 2 * 4
 _MAX_GRID_Y = 65535
+
+
+def _stage_bytes(dtype_bytes: int) -> int:
+    """One ring stage: the A and B tiles of 32 k and two mbarriers."""
+    return 2 * _TILE * _KT * dtype_bytes + _BAR_BYTES
+
+
+def _split_bytes(dtype_bytes: int) -> int:
+    return _SPLIT_F32 if dtype_bytes == 4 else 0
+
+
+def ring_stages(block_k: int, dtype_bytes: int = 2) -> int:
+    """Stages of the kernel's ring for ``block_k``: ceil(block_k / 32),
+    at least 2, at most what fits beside the float32 split tiles."""
+    cap = (_MAX_SMEM - _split_bytes(dtype_bytes)) // _stage_bytes(dtype_bytes)
+    return min(max(-(-int(block_k) // _KT), 2), cap)
 
 
 def smem_footprint_bytes(block_m: int, block_n: int, block_k: int,
                          dtype_bytes: int = 2) -> int:
     """Dynamic shared memory the CUDA kernel requests for these knobs:
-    the A piece (transposed, one padding column) and the B piece of one
-    k step, in the input dtype.  The launcher refuses any other size."""
-    sub_m, sub_n = min(block_m, _SUB), min(block_n, _SUB)
-    kc = min(block_k, _CHUNK)
-    return kc * ((sub_m + 1) + sub_n) * dtype_bytes
+    the ring (A and B tiles of 32 k per stage, in the input dtype, and
+    each stage's two mbarriers), plus the TF32 split tiles in float32.
+    ``block_m`` and ``block_n`` do not change it.  The launcher refuses
+    any other size."""
+    return (_split_bytes(dtype_bytes)
+            + ring_stages(block_k, dtype_bytes) * _stage_bytes(dtype_bytes))
+
+
+def tma_loads(a, b) -> bool:
+    """Whether the kernel loads its tiles by TMA: both bases and both row
+    strides are multiples of 16 bytes.  Otherwise the producer threads
+    copy them."""
+    (_, K), N = a.shape, b.shape[1]
+    elt = a.element_size()
+    return (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            and K * elt % 16 == 0 and N * elt % 16 == 0)
 
 
 def _check(a, b, block_m: int, block_n: int, block_k: int) -> None:
@@ -57,20 +103,25 @@ def _check(a, b, block_m: int, block_n: int, block_k: int) -> None:
 def _launch_args(a, b, out, block_m: int, block_n: int,
                  block_k: int) -> tuple:
     """Arguments of ``cbp_matmul_launch`` before the stream: pointers,
-    sizes, knobs, dtype code and the dynamic shared memory it requests."""
+    sizes, knobs, the load stage (1: TMA), dtype code and the dynamic
+    shared memory it requests."""
     (M, K), N = a.shape, b.shape[1]
     return (a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, block_m,
-            block_n, block_k, build.DTYPE_CODES[a.dtype],
+            block_n, block_k, int(tma_loads(a, b)),
+            build.DTYPE_CODES[a.dtype],
             smem_footprint_bytes(block_m, block_n, block_k,
                                  a.element_size()))
 
 
 def cbp_matmul_plain(a, b, *, block_m: int = 128, block_n: int = 128,
                      block_k: int = 128):
-    """``(a @ b)`` in float32, cast to ``a.dtype``: the Pallas kernel's
-    arithmetic (f32 products, f32 sums; the knobs only schedule it)."""
+    """``(a @ b)`` summed in float64 and rounded once to ``a.dtype``: the
+    exact product that the Pallas kernel's f32 products and f32 sums
+    approximate (the knobs only schedule it).  Not a float32 sum: at
+    K = 4096 the card's float32 ``torch.matmul`` lies beyond the float32
+    limit of ``kernels/tolerance.py`` from the exact product itself."""
     _check(a, b, block_m, block_n, block_k)
-    return torch.matmul(a.float(), b.float()).to(a.dtype)
+    return torch.matmul(a.double(), b.double()).to(a.dtype)
 
 
 def cbp_matmul(a, b, *, block_m: int = 128, block_n: int = 128,
@@ -98,7 +149,7 @@ def cbp_matmul(a, b, *, block_m: int = 128, block_n: int = 128,
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if out.numel() == 0 or K == 0:
         return out.zero_()
-    launch = build.launcher("cbp_matmul", [build.ptr] * 3 + [build.i32] * 8)
+    launch = build.launcher("cbp_matmul", [build.ptr] * 3 + [build.i32] * 9)
     with torch.cuda.device(a.device):
         launch(*_launch_args(a, b, out, bm, bn, bk))
     LAUNCHES.record()

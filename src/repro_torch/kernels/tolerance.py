@@ -2,9 +2,10 @@
 PyTorch version on the same inputs (``chip_smoke.py`` and the card tests
 hold the kernels to these limits).
 
-Both sides compute in float32, so they differ by the order of their f32
-sums.  In float32 the limit is ``atol = rtol`` = the JAX package's own
-kernel tolerance (``F32_TOL``).  In bfloat16 both sides then round their
+Both sides compute in float32 (the matmul's plain version sums in
+float64, the exact product), so they differ by the order and care of
+their f32 sums.  In float32 the limit is ``atol = rtol`` = the JAX
+package's own kernel tolerance (``F32_TOL``).  In bfloat16 both sides then round their
 f32 result to 8 significant bits, which moves two nearly equal values at
 most one bf16 ulp apart: the limit is ``rtol = 2^-7`` (one ulp relative
 to the element, at the worst place in its binade) plus the f32 tolerance

@@ -33,6 +33,7 @@ from repro_torch.kernels.cbp_matmul import (
     cbp_matmul,
     cbp_matmul_plain,
     smem_footprint_bytes,
+    tma_loads,
 )
 from repro_torch.kernels.flash_attention import (
     flash_attention,
@@ -113,6 +114,20 @@ MATMUL_CASES = [
     (256, 128, 256, 64, 64, 64), (256, 128, 256, 128, 64, 32),
     (97, 53, 70, 104, 72, 56), (4, 128, 128, 4, 128, 128),
     (130, 96, 70, 32, 24, 40), (512, 512, 512, 256, 256, 256),
+    # TMA loads (16-byte rows and bases), several tiles per region
+    (384, 256, 512, 256, 256, 128),
+    # the copy stage: K = 53, N = 70, N odd
+    (64, 53, 136, 64, 136, 64), (96, 64, 67, 64, 64, 64),
+    # regions that are not a multiple of the 128 tile
+    (300, 96, 264, 104, 40, 24), (200, 64, 300, 24, 104, 40),
+    # M < 64, and M <= 8 with the whole-extent block
+    (40, 128, 256, 128, 128, 128), (8, 64, 136, 8, 136, 64),
+    # block_k below two stages, and above the shared-memory cap
+    (128, 256, 128, 128, 128, 8), (128, 512, 256, 128, 128, 4096),
+    # K = 4096: the 3xTF32 accuracy in f32
+    (256, 4096, 256, 128, 128, 128),
+    # the planner's largest knobs: one block owns the matrix
+    (300, 256, 400, 4096, 6144, 4096),
 ]
 
 
@@ -127,11 +142,32 @@ def test_matmul_kernel_equals_plain(card, case, dtype):
     _close("cbp_matmul", got, cbp_matmul_plain(a, b))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("a_off,b_off", [(0, 0), (1, 0), (0, 3)])
+def test_matmul_kernel_equals_plain_on_unaligned_bases(card, dtype, a_off,
+                                                       b_off):
+    """Rows of 16-byte multiples, but a base off a 16-byte boundary takes
+    the copy stage; aligned ones take TMA."""
+    rng = np.random.default_rng(3)
+    m, k, n = 192, 128, 256
+
+    def at(shape, off):
+        buf = torch.zeros(shape[0] * shape[1] + 16, dtype=dtype, device=card)
+        t = buf[off:off + shape[0] * shape[1]].view(shape)
+        return t.copy_(_randn(rng, shape, dtype, card))
+
+    a, b = at((m, k), a_off), at((k, n), b_off)
+    assert tma_loads(a, b) == (a_off == 0 and b_off == 0)
+    got = _launched_once("cbp_matmul", lambda: cbp_matmul(a, b))
+    _close("cbp_matmul", got, cbp_matmul_plain(a, b))
+
+
 def test_matmul_shared_memory_equals_the_kernels_own_count(card):
     fn = build.load("cbp_matmul").cbp_matmul_smem_bytes
     fn.restype = ctypes.c_int
     for knobs in [(128, 128, 128), (256, 256, 256), (4, 128, 16),
-                  (104, 72, 56), (4096, 6144, 4096)]:
+                  (104, 72, 56), (4096, 6144, 4096), (8, 8, 1),
+                  (128, 128, 96), (128, 128, 448), (128, 128, 480)]:
         for db in (2, 4):
             assert fn(*knobs, db) == smem_footprint_bytes(*knobs, db)
 

@@ -23,7 +23,9 @@ from repro_torch.kernels.cbp_matmul import (
     LAUNCHES,
     cbp_matmul,
     cbp_matmul_plain,
+    ring_stages,
     smem_footprint_bytes,
+    tma_loads,
 )
 from repro_torch.kernels.cbp_matmul.ops import _launch_args
 
@@ -98,12 +100,22 @@ def test_rejects_what_the_kernel_does_not_take(bad):
         cbp_matmul(*args, **kw)
 
 
+# The kernel's shared memory, written out: a ring of S stages, each the A
+# and B tiles of 32 k (2 x 128 x 32 elements) and two 8-byte mbarriers;
+# S = clamp(ceil(block_k / 32), 2, what fits in 232,448 bytes); in f32 also
+# the TF32 split tiles, 2 warpgroups x (64 + 128) rows x 32 x (hi, lo) x 4
+# bytes = 98,304.
+STAGE_BF16 = 2 * 128 * 32 * 2 + 16
+STAGE_F32 = 2 * 128 * 32 * 4 + 16
+SPLIT_F32 = 2 * (64 + 128) * 32 * 2 * 4
+
+
 @pytest.mark.parametrize("knobs,dtype_bytes,want", [
-    ((128, 128, 128), 2, 32 * (65 + 64) * 2),
-    ((256, 256, 256), 4, 32 * (65 + 64) * 4),
-    ((104, 72, 56), 4, 32 * (65 + 64) * 4),
-    ((4, 128, 16), 4, 16 * (5 + 64) * 4),
-    ((8, 16, 8), 2, 8 * (9 + 16) * 2),
+    ((128, 128, 128), 2, 4 * STAGE_BF16),
+    ((256, 256, 256), 4, SPLIT_F32 + 4 * STAGE_F32),   # 8 stages, capped
+    ((104, 72, 56), 4, SPLIT_F32 + 2 * STAGE_F32),
+    ((4, 128, 16), 4, SPLIT_F32 + 2 * STAGE_F32),      # at least 2
+    ((8, 16, 8), 2, 2 * STAGE_BF16),
 ])
 def test_smem_footprint_is_what_the_launch_requests(knobs, dtype_bytes,
                                                     want):
@@ -113,7 +125,61 @@ def test_smem_footprint_is_what_the_launch_requests(knobs, dtype_bytes,
     out = torch.empty(16, 16, dtype=dtype)
     args = _launch_args(a, b, out, *knobs)
     assert args[-1] == want and args[-2] == (dtype_bytes == 2)
-    # Unlike the reference's VMEM footprint, it is bounded by the staging
-    # pieces, not by the knobs.
-    assert smem_footprint_bytes(4096, 6144, 4096, 2) < vmem_footprint_bytes(
-        128, 128, 128)
+    # Unlike the reference's VMEM footprint, it is bounded by the ring's
+    # cap, not by the knobs: the planner's largest knobs fit one block.
+    assert smem_footprint_bytes(4096, 6144, 4096, 2) <= 232448 < (
+        vmem_footprint_bytes(4096, 6144, 4096))
+
+
+@pytest.mark.parametrize("block_k,dtype_bytes,stages", [
+    (1, 2, 2), (32, 2, 2), (33, 2, 2), (96, 2, 3), (128, 2, 4),
+    (448, 2, 14), (4096, 2, 14), (64, 4, 2), (128, 4, 4), (4096, 4, 4),
+])
+def test_ring_stages_follow_block_k_within_the_clamp(block_k, dtype_bytes,
+                                                     stages):
+    """S = ceil(block_k / 32), at least 2, at most 14 stages in bf16
+    (14 x 16,400 bytes) and 4 in f32 (98,304 + 4 x 32,784 bytes)."""
+    assert ring_stages(block_k, dtype_bytes) == stages
+    split = SPLIT_F32 if dtype_bytes == 4 else 0
+    stage = STAGE_F32 if dtype_bytes == 4 else STAGE_BF16
+    assert smem_footprint_bytes(128, 128, block_k, dtype_bytes) == (
+        split + stages * stage)
+    assert split + (stages + 1) * stage > 232448 or stages * 32 >= block_k
+
+
+def test_f32_footprint_adds_the_split_tiles_at_equal_stages():
+    for block_k in (64, 96, 128):
+        s = ring_stages(block_k, 4)
+        assert s == ring_stages(block_k, 2)
+        assert (smem_footprint_bytes(128, 128, block_k, 4)
+                - 2 * smem_footprint_bytes(128, 128, block_k, 2)
+                == SPLIT_F32 - 16 * s)
+
+
+def _offset(t: torch.Tensor, elements: int) -> torch.Tensor:
+    """``t``'s values in a contiguous tensor whose base lies ``elements``
+    elements past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype)
+    return buf[elements:elements + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,a_off,b_off", [
+    (64, 64, 0, 0), (53, 64, 0, 0), (64, 70, 0, 0), (64, 67, 0, 0),
+    (64, 72, 0, 0), (64, 64, 1, 0), (64, 64, 0, 3), (48, 8, 0, 0),
+])
+def test_wrapper_takes_tma_exactly_when_rows_and_bases_are_16_byte_aligned(
+        dtype, k, n, a_off, b_off):
+    a = _offset(torch.zeros(12, k, dtype=dtype), a_off)
+    b = _offset(torch.zeros(k, n, dtype=dtype), b_off)
+    elt = a.element_size()
+    aligned = (k * elt % 16 == 0 and n * elt % 16 == 0
+               and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    assert aligned == (a_off == 0 and b_off == 0 and k * elt % 16 == 0
+                       and n * elt % 16 == 0)
+    assert tma_loads(a, b) == aligned
+    out = torch.empty(12, n, dtype=dtype)
+    assert _launch_args(a, b, out, 128, 128, 128)[-3] == int(aligned)
+    # Either way the CPU runs the plain version on the same values.
+    torch.testing.assert_close(cbp_matmul(a, b), cbp_matmul_plain(a, b),
+                               rtol=0, atol=0)
