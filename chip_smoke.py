@@ -51,12 +51,14 @@ under the planned knobs:
              version) and at full width, planned against default knobs,
              within the limits of ``repro_torch.kernels.tolerance``; and
              times of kernel, plain version and the PyTorch library call
-             beside each kernel's bound.  ``cbp_matmul`` also runs in
-             float32 at full width (3xTF32 on the tensor cores), held to
-             its plain version at the f32 tolerance and timed beside
-             ``torch.matmul`` in float32 with TF32 off.  Edge cases
-             (ragged matmul dims, m < 8, cur_len 0, Sq != Sk, not causal)
-             are the card tests' (``pytest -m cuda``).
+             beside each kernel's bound.  ``cbp_matmul`` and
+             ``flash_attention`` also run in float32 at full width
+             (3xTF32 on the tensor cores), held to their plain versions
+             at the f32 tolerance and timed beside ``torch.matmul`` and
+             ``scaled_dot_product_attention`` in float32 with TF32 off.
+             Edge cases (ragged matmul dims, m < 8, cur_len 0, Sq != Sk,
+             not causal, odd head dims, unaligned bases) are the card
+             tests' (``pytest -m cuda``).
 
 Every phase prints one JSON line with the card's name and power limit,
 and a last ``done`` line gives the script's seconds; then comes the
@@ -96,9 +98,9 @@ FP64_OPS_PER_S = 34e12
 
 #: Dense peak rates of the same data sheet for the kernel-level path: bf16
 #: and TF32 on the tensor cores, and float32 on the CUDA cores.  The
-#: matmul's f32 product is three TF32 products (3xTF32), so its bound is
-#: 3 x 2MNK at the TF32 rate; the other kernels' f32 work runs on the CUDA
-#: cores.
+#: matmul's and attention's f32 products are three TF32 products each
+#: (3xTF32), so their bound is three times their FLOP at the TF32 rate;
+#: decode's and the SSD scan's f32 work runs on the CUDA cores.
 BF16_TC_OPS_PER_S = 989e12
 TF32_TC_OPS_PER_S = 495e12
 FP32_OPS_PER_S = 67e12
@@ -653,17 +655,20 @@ def kernel_work(name: str, args, kw: dict):
     """(bytes, operations, ops/s) the function needs on these inputs,
     whatever the knobs: each input read once and the output written once;
     operations counted as this run's data needs them (the causal triangle,
-    the live cache, the SSD recurrence one step at a time)."""
+    the live cache, the SSD recurrence one step at a time); the rate is
+    the bf16 tensor-core rate, a third of the TF32 rate for the f32
+    matmul and attention (3xTF32), else the f32 CUDA-core rate."""
     import torch
 
     rate = (BF16_TC_OPS_PER_S if args[0].dtype == torch.bfloat16
             else FP32_OPS_PER_S)
+    if name in ("cbp_matmul", "flash_attention") and \
+            args[0].dtype == torch.float32:
+        rate = TF32_TC_OPS_PER_S / 3   # 3xTF32 on the tensor cores
     elt = args[0].element_size()
     if name == "cbp_matmul":
         a, b = args
         (M, K), N = a.shape, b.shape[1]
-        if a.dtype == torch.float32:
-            rate = TF32_TC_OPS_PER_S / 3
         return (a.numel() + b.numel() + M * N) * elt, 2 * M * N * K, rate
     if name == "flash_attention":
         q, k, v = args
@@ -729,34 +734,52 @@ def drive_kernel_path(full: dict, budget: int):
     return knobs, outs, launch_counts()
 
 
-def matmul_f32_full(card: str, gen, kn_a: dict) -> float:
-    """``cbp_matmul`` in float32 at the full-width shape, planned knobs (a)
-    and defaults (b), against its plain version at the f32 tolerance, and
-    timed beside ``torch.matmul`` in float32 (TF32 off, as stated on the
-    line).  Returns the larger error."""
+def f32_full_inputs(gen, name: str):
+    """Full-width float32 inputs for ``name`` drawn from ``gen``: the
+    qwen3-8b FFN matmul, or its prefill attention (k/v repeated from 8
+    heads, causal).  Drawn in f32, since bf16 values would leave 3xTF32's
+    low parts zero."""
     import torch
 
-    kfn, pfn = kernel_fns("cbp_matmul")
-    args = (torch.randn(4096, 4096, generator=gen, device="cuda"),
-            torch.randn(4096, 12288, generator=gen, device="cuda"))
-    kn_b = default_knobs("cbp_matmul")
-    plain = pfn(*args)
-    out_a, out_b = kfn(*args, **kn_a), kfn(*args, **kn_b)
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    if name == "cbp_matmul":
+        return (r(4096, 4096), r(4096, 12288)), {}
+    H, S, D, HKV = 32, 4096, 128, 8
+    kv = [r(1, HKV, S, D).repeat_interleave(H // HKV, dim=1).contiguous()
+          for _ in range(2)]
+    return (r(1, H, S, D), *kv), {"causal": True}
+
+
+def f32_full(card: str, gen, name: str, kn_a: dict) -> float:
+    """``name`` (``cbp_matmul`` or ``flash_attention``) in float32 at the
+    full-width shape, planned knobs (a) and defaults (b), against its
+    plain version at the f32 tolerance, and timed beside the PyTorch call
+    in float32 (TF32 off, as stated on the line).  Returns the larger
+    error."""
+    import torch
+
+    kfn, pfn = kernel_fns(name)
+    args, kw = f32_full_inputs(gen, name)
+    kn_b = default_knobs(name)
+    plain = pfn(*args, **kw)
+    out_a, out_b = kfn(*args, **kw, **kn_a), kfn(*args, **kw, **kn_b)
     torch.cuda.synchronize()
     what = "full width f32, knobs"
-    err = max(compare("cbp_matmul", out_a, plain, what + " (a)"),
-              compare("cbp_matmul", out_b, plain, what + " (b)"))
+    err = max(compare(name, out_a, plain, what + " (a)"),
+              compare(name, out_b, plain, what + " (b)"))
     del out_a, out_b, plain
-    n_bytes, n_ops, rate = kernel_work("cbp_matmul", args, {})
+    n_bytes, n_ops, rate = kernel_work(name, args, kw)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / rate * 1e3
-    emit(card, phase="kernels", name="cbp_matmul", case="full_f32",
+    emit(card, phase="kernels", name=name, case="full_f32",
          shape=[list(t.shape) for t in args], dtype="float32",
          knobs_a=kn_a, knobs_b=kn_b,
-         ms=time_ms(lambda: kfn(*args, **kn_a)),
-         ms_b=time_ms(lambda: kfn(*args, **kn_b)),
-         plain_ms=time_ms(lambda: pfn(*args)),
-         library_ms=time_ms(lambda: torch.matmul(*args)),
+         ms=time_ms(lambda: kfn(*args, **kw, **kn_a)),
+         ms_b=time_ms(lambda: kfn(*args, **kw, **kn_b)),
+         plain_ms=time_ms(lambda: pfn(*args, **kw)),
+         library_ms=time_ms(library_call(name, args, kw)),
          library_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          bytes=n_bytes, operations=n_ops, bound_ms=max(t_bytes, t_ops),
          bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -827,8 +850,8 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
             emit(card, phase="kernels", name=name, case="full", **rec)
             rows.setdefault(name, rec)
 
-    errs["cbp_matmul"] = max(errs["cbp_matmul"],
-                             matmul_f32_full(card, gen, knobs_a[0]))
+    for i, name in ((0, "cbp_matmul"), (1, "flash_attention")):
+        errs[name] = max(errs[name], f32_full(card, gen, name, knobs_a[i]))
 
     # The record's shapes (f32): planned and default knobs, against the
     # plain version on the card and on the CPU.
@@ -900,7 +923,8 @@ def main() -> int:
         logs = build.build_all()
         emit(card, phase="build", seconds=time.perf_counter() - t0,
              kernels=list(build.SOURCES),
-             ptxas={k: [ln for ln in v.splitlines() if "Used" in ln]
+             ptxas={k: [ln.strip() for ln in v.splitlines()
+                        if "Used" in ln or "spill" in ln]
                     for k, v in logs.items()})
 
         G = boundary_groups(TOTAL_MS)

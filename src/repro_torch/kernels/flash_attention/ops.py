@@ -5,9 +5,20 @@ version.
 ``repro.kernels.flash_attention.kernel.flash_attention_fwd``: attention
 over ``(B, H, S, Dh)`` q/k/v, causal (mask ``kpos <= qpos`` from index 0,
 also when ``Sq != Sk``) or not, scale ``Dh ** -0.5``, f32 softmax
-statistics, output in the input dtype; written in CUDA C++
-(``src/repro_torch/csrc/flash_attention.cu``).  A thread block owns
-``block_q`` query rows of one head and strides the keys by ``block_kv``.
+statistics, output in the input dtype; written in CUDA C++ for Hopper
+(``src/repro_torch/csrc/flash_attention.cu``): one tensor-core kernel
+(``wgmma`` fed by a TMA ring of K/V stages), bf16 directly (P split into
+two bf16 parts) and float32 as three TF32 products (3xTF32).
+
+The knobs keep their meaning: a thread block owns ``block_q`` query rows
+of one head, walked in tiles of 128 (bf16) or 64 (float32) rows, and
+``block_kv`` is the step of the Pallas kernel's causal block skip, which
+the kernel's own skip (keys up to each tile's last row) never exceeds.
+Head widths up to 128 run, padded to 64 or 128 in shared memory.
+
+Tiles are loaded by TMA when q, k and v start on 16-byte boundaries and a
+row of ``Dh`` elements is a multiple of 16 bytes (:func:`tma_loads`),
+else by the producer warp into the same layouts, in the same kernel.
 
 For CUDA tensors it launches that kernel or raises; only tensors on the
 CPU go to :func:`flash_attention_plain`.
@@ -24,7 +35,33 @@ LAUNCHES = LaunchCounter("flash_attention")
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128   # the kernel's shared-memory tiles (csrc: kMaxDh)
-_MAX_GRID_Y = 65535
+_MAX_BLOCKS = 2 ** 31 - 1
+#: Per element size: consumer warpgroups (64 query rows each), keys of a
+#: ring stage, ring stages, and (float32) stages of the split ring that the
+#: splitter warpgroup fills (csrc: Cfg).
+_CONFIG = {2: (2, 128, 3, 0), 4: (1, 32, 1, 2)}
+
+
+def attention_smem_bytes(dh: int, dtype_bytes: int = 2) -> int:
+    """Dynamic shared memory the CUDA kernel requests at head dim ``dh``
+    (padded to 64 or 128): the Q tile (float32: and Q lo), the ring's K
+    and V stages, in float32 the split stages (K hi, K lo, V^T hi, V^T
+    lo), and the mbarriers.  The knobs do not change it."""
+    kd = 64 if dh <= 64 else 128
+    wg, keys, stages, splits = _CONFIG[dtype_bytes]
+    q = 64 * wg * kd * dtype_bytes
+    kv = keys * kd * dtype_bytes
+    q_lo = q if splits else 0
+    return (q + q_lo + stages * 2 * kv + splits * 4 * kv
+            + (2 * stages + 2 * splits + 3) * 8)
+
+
+def tma_loads(q, k, v) -> bool:
+    """Whether the kernel loads its tiles by TMA: q, k and v start on
+    16-byte boundaries and a row (``Dh`` elements) is a multiple of 16
+    bytes.  Otherwise the producer warp copies them."""
+    return (all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+            and q.shape[3] * q.element_size() % 16 == 0)
 
 
 def _check(q, k, v, block_q: int, block_kv: int) -> None:
@@ -84,9 +121,9 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {dh} exceeds the kernel's limit "
                          f"{MAX_HEAD_DIM}")
-    if sq // block_q > _MAX_GRID_Y:
-        raise ValueError(f"Sq / block_q = {sq // block_q} exceeds the grid "
-                         f"limit {_MAX_GRID_Y}")
+    if b * h * (sq // block_q) > _MAX_BLOCKS:
+        raise ValueError(f"B * H * Sq / block_q = {b * h * (sq // block_q)} "
+                         f"exceeds the grid limit {_MAX_BLOCKS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     out = torch.empty_like(q)

@@ -20,6 +20,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_fwd
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention import (
     LAUNCHES,
+    attention_smem_bytes,
     flash_attention,
     flash_attention_plain,
 )
@@ -27,7 +28,9 @@ from repro_torch.kernels.flash_attention import (
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: (B, H, Sq, Sk, Dh, block_q, block_kv)
 SHAPES = [(1, 2, 64, 64, 32, 32, 32), (1, 2, 64, 64, 32, 64, 32),
-          (1, 2, 64, 96, 32, 32, 32)]
+          (1, 2, 64, 96, 32, 32, 32),
+          # the smoke configs' head dim and zamba2-7b's
+          (1, 2, 64, 64, 16, 32, 32), (1, 1, 64, 96, 112, 32, 32)]
 
 
 def _qkv(shape, dtype, seed=0):
@@ -60,7 +63,8 @@ def test_plain_equals_jax_pallas_kernel(shape, dtype, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", [(2, 3, 128, 128, 64), (1, 2, 64, 160, 32)])
+@pytest.mark.parametrize("shape", [(2, 3, 128, 128, 64), (1, 2, 64, 160, 32),
+                                   (1, 2, 64, 64, 16), (1, 1, 64, 96, 112)])
 def test_plain_equals_oracle(shape, causal):
     (q, k, v), (jq, jk, jv) = _qkv(shape, "float32", seed=1)
     np.testing.assert_allclose(
@@ -94,3 +98,13 @@ def test_rejects_what_the_jax_kernel_asserts(bad):
         v = v.double()
     with pytest.raises(ValueError):
         flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+def test_kernel_shared_memory_fits_a_block_at_every_head_dim(dtype_bytes):
+    """The kernel's shared memory (Q tile, K/V ring, float32 split tiles)
+    fits the 232,448 bytes an H100 block may use, for every head dim the
+    wrapper accepts; Dh pads to 64 or 128."""
+    sizes = [attention_smem_bytes(dh, dtype_bytes) for dh in range(1, 129)]
+    assert max(sizes) <= 232448
+    assert sizes[0] == sizes[63] < sizes[64] == sizes[127]

@@ -36,9 +36,11 @@ from repro_torch.kernels.cbp_matmul import (
     tma_loads,
 )
 from repro_torch.kernels.flash_attention import (
+    attention_smem_bytes,
     flash_attention,
     flash_attention_plain,
 )
+from repro_torch.kernels.flash_attention import tma_loads as attention_tma
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.lookahead_greedy import (
     lookahead_greedy,
@@ -172,27 +174,65 @@ def test_matmul_shared_memory_equals_the_kernels_own_count(card):
             assert fn(*knobs, db) == smem_footprint_bytes(*knobs, db)
 
 
-#: (B, H, Sq, Sk, Dh, block_q, block_kv)
+#: (B, H, Sq, Sk, Dh, block_q, block_kv[, variant]); variant "offset"
+#: starts q, k and v one element into their storage (not 16-byte aligned:
+#: the copy stage), "nan_tail" sets every key past the last query's
+#: diagonal (Sq - 1) to NaN when causal: the output must not change.
 ATTENTION_CASES = [
     (1, 2, 64, 64, 32, 32, 32), (1, 2, 64, 96, 32, 32, 32),
     (1, 4, 512, 512, 128, 256, 128), (1, 2, 320, 192, 64, 160, 96),
     (2, 3, 192, 320, 64, 64, 32),
+    # zamba2-7b's head dim, the smoke configs' 16, and the planner's knobs
+    # at the record shape
+    (1, 2, 256, 256, 112, 128, 128), (1, 2, 256, 256, 16, 64, 64),
+    (1, 4, 512, 512, 64, 256, 256),
+    # rows of 18 elements are not 16-byte multiples: the copy stage
+    (1, 2, 128, 256, 18, 64, 64),
+    (1, 2, 192, 192, 64, 64, 64, "offset"),
+    (1, 2, 128, 320, 128, 128, 64, "offset"),
+    # the last key stage of a tile straddles Sq: it must end at the limit
+    (1, 2, 96, 256, 64, 32, 32, "nan_tail"),
+    (1, 2, 160, 320, 112, 160, 32, "nan_tail"),
 ]
+
+
+def _at_offset(t, off):
+    """A contiguous copy of ``t`` that starts ``off`` elements into its
+    storage."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    return buf[off:off + t.numel()].view(t.shape).copy_(t)
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", ATTENTION_CASES)
 def test_attention_kernel_equals_plain(card, case, dtype, causal):
-    B, H, Sq, Sk, D, bq, bkv = case
+    B, H, Sq, Sk, D, bq, bkv = case[:7]
+    variant = case[7] if len(case) > 7 else None
     rng = np.random.default_rng(1)
     q = _randn(rng, (B, H, Sq, D), dtype, card)
     k, v = (_randn(rng, (B, H, Sk, D), dtype, card) for _ in range(2))
+    if variant == "offset":
+        q, k, v = (_at_offset(t, 1) for t in (q, k, v))
+        assert q.is_contiguous() and not attention_tma(q, k, v)
+    want = flash_attention_plain(q, k, v, causal=causal, block_q=bq,
+                                 block_kv=bkv)
     got = _launched_once("flash_attention", lambda: flash_attention(
         q, k, v, causal=causal, block_q=bq, block_kv=bkv))
-    _close("flash_attention", got,
-           flash_attention_plain(q, k, v, causal=causal, block_q=bq,
-                                 block_kv=bkv))
+    _close("flash_attention", got, want)
+    if variant == "nan_tail" and causal:
+        k[:, :, Sq:], v[:, :, Sq:] = float("nan"), float("nan")
+        poisoned = flash_attention(q, k, v, causal=causal, block_q=bq,
+                                   block_kv=bkv)
+        assert torch.equal(poisoned, got)
+
+
+def test_attention_shared_memory_equals_the_kernels_own_count(card):
+    fn = build.load("flash_attention").flash_attention_smem_bytes
+    fn.restype = ctypes.c_int
+    for dh in range(1, 129):
+        for db in (2, 4):
+            assert fn(dh, db) == attention_smem_bytes(dh, db)
 
 
 def test_attention_refuses_a_head_dim_it_cannot_stage(card):
