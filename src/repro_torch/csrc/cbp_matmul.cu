@@ -398,33 +398,6 @@ cbp_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
-// the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 CUtensorMapSwizzle swizzle_mode(int sw) {
   return sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
          : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -436,7 +409,7 @@ CUtensorMapSwizzle swizzle_mode(int sw) {
 template <typename T>
 bool encode(CUtensorMap* map, const void* p, int rows, int cols,
             int box_rows, int box_cols, int sw) {
-  EncodeTiled fn = encode_tiled();
+  hopper::EncodeTiled fn = hopper::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};

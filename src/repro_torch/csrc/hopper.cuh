@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels,
 // written as inline PTX: mbarriers, TMA tile loads, the shared-memory
-// matrix descriptors of `wgmma` and the `wgmma` instructions themselves.
+// matrix descriptors of `wgmma` and the `wgmma` instructions themselves;
+// and, on the host, the driver's tensor-map encoder.
 //
 // Conventions.  Shared-memory operand tiles use the swizzled layouts that
 // TMA writes and `wgmma` reads for a kSw-byte swizzle (32, 64 or 128):
@@ -132,6 +133,35 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- tensor maps (host) ------------------------------------------------ //
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library needs no -lcuda.  Null if the driver lacks it.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 // ---- wgmma -------------------------------------------------------------- //
