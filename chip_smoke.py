@@ -55,7 +55,9 @@ under the planned knobs:
              ``flash_attention`` also run in float32 at full width
              (3xTF32 on the tensor cores), held to their plain versions
              at the f32 tolerance and timed beside ``torch.matmul`` and
-             ``scaled_dot_product_attention`` in float32 with TF32 off.
+             ``scaled_dot_product_attention`` in float32 with TF32 off;
+             ``ssd_scan`` also runs in bfloat16 (mamba2's parameter
+             dtype) at full width, against its plain version.
              Edge cases (ragged matmul dims, m < 8, cur_len 0, Sq != Sk,
              not causal, odd head dims, unaligned bases) are the card
              tests' (``pytest -m cuda``).
@@ -100,7 +102,9 @@ FP64_OPS_PER_S = 34e12
 #: and TF32 on the tensor cores, and float32 on the CUDA cores.  The
 #: matmul's and attention's f32 products are three TF32 products each
 #: (3xTF32), so their bound is three times their FLOP at the TF32 rate;
-#: decode's and the SSD scan's f32 work runs on the CUDA cores.
+#: the SSD scan's f32 products are three bf16 products each (its inputs
+#: split into bf16 hi + lo), so its bound is three times its FLOP at the
+#: bf16 rate; decode's f32 work runs on the CUDA cores.
 BF16_TC_OPS_PER_S = 989e12
 TF32_TC_OPS_PER_S = 495e12
 FP32_OPS_PER_S = 67e12
@@ -655,9 +659,10 @@ def kernel_work(name: str, args, kw: dict):
     """(bytes, operations, ops/s) the function needs on these inputs,
     whatever the knobs: each input read once and the output written once;
     operations counted as this run's data needs them (the causal triangle,
-    the live cache, the SSD recurrence one step at a time); the rate is
-    the bf16 tensor-core rate, a third of the TF32 rate for the f32
-    matmul and attention (3xTF32), else the f32 CUDA-core rate."""
+    the live cache, the SSD's chunked form at the call's chunk); the rate
+    is the bf16 tensor-core rate, a third of the TF32 rate for the f32
+    matmul and attention (3xTF32), a third of the bf16 rate for the f32
+    SSD scan (three bf16 products), else the f32 CUDA-core rate."""
     import torch
 
     rate = (BF16_TC_OPS_PER_S if args[0].dtype == torch.bfloat16
@@ -665,6 +670,8 @@ def kernel_work(name: str, args, kw: dict):
     if name in ("cbp_matmul", "flash_attention") and \
             args[0].dtype == torch.float32:
         rate = TF32_TC_OPS_PER_S / 3   # 3xTF32 on the tensor cores
+    if name == "ssd_scan" and args[0].dtype == torch.float32:
+        rate = BF16_TC_OPS_PER_S / 3   # hi*hi + hi*lo + lo*hi in bf16
     elt = args[0].element_size()
     if name == "cbp_matmul":
         a, b = args
@@ -684,15 +691,19 @@ def kernel_work(name: str, args, kw: dict):
         L = max(0, min(int(cur_len), k.shape[2]))
         return ((2 * q.numel() + 2 * B * H * L * D) * elt + 4,
                 4 * B * H * L * D, rate)
-    # SSD in its chunk-1 form (the recurrence), per step and head: C.B^T
-    # and its product with x dt (2 (N + P)), the state's update and
-    # y = C.state (4 P N).  A larger chunk only adds intra-chunk products.
+    # SSD in its chunked form at the call's chunk L: per (batch row,
+    # chunk) the lower triangle of C.B^T (B and C are shared by the
+    # heads: N L (L + 1)); per (batch, head, chunk) the masked M (x dt)
+    # (P L (L + 1)), C.state^T and the state update (2 L N P each).
     x, dt, A, Bm, Cm = args
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    per_step = 2 * (N + P) + 4 * P * N
+    L = int(kw.get("chunk", 128))
+    n_chunks = B * (S // L)
+    ops = n_chunks * (N * L * (L + 1)
+                      + H * (P * L * (L + 1) + 4 * L * N * P))
     n_bytes = (2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel()) * elt
-    return n_bytes + 4 * A.numel(), per_step * B * S * H, rate
+    return n_bytes + 4 * A.numel(), ops, rate
 
 
 def library_call(name: str, args, kw: dict):
@@ -770,7 +781,7 @@ def f32_full(card: str, gen, name: str, kn_a: dict) -> float:
     err = max(compare(name, out_a, plain, what + " (a)"),
               compare(name, out_b, plain, what + " (b)"))
     del out_a, out_b, plain
-    n_bytes, n_ops, rate = kernel_work(name, args, kw)
+    n_bytes, n_ops, rate = kernel_work(name, args, {**kw, **kn_a})
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / rate * 1e3
     emit(card, phase="kernels", name=name, case="full_f32",
@@ -785,6 +796,39 @@ def f32_full(card: str, gen, name: str, kn_a: dict) -> float:
          bound_by="bytes" if t_bytes >= t_ops else "operations",
          max_abs_err=err)
     return err
+
+
+def ssd_bf16_full(card: str, gen, kn_a: dict) -> dict:
+    """``ssd_scan`` in bfloat16, mamba2's parameter dtype, at the
+    full-width shape: planned knobs (a) and defaults (b) against the
+    plain version at the bf16 limits, timed beside its bound.  Returns
+    the emitted record."""
+    import torch
+
+    kfn, pfn = kernel_fns("ssd_scan")
+    args = ssd_inputs(gen, 2, 4096, 64, 64, 128, torch.bfloat16, "cuda")
+    kn_b = default_knobs("ssd_scan")
+    plain = pfn(*args)
+    out_a, out_b = kfn(*args, **kn_a), kfn(*args, **kn_b)
+    torch.cuda.synchronize()
+    what = "full width bf16, knobs"
+    err = max(compare("ssd_scan", out_a, plain, what + " (a)"),
+              compare("ssd_scan", out_b, plain, what + " (b)"))
+    del out_a, out_b, plain
+    n_bytes, n_ops, rate = kernel_work("ssd_scan", args, kn_a)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / rate * 1e3
+    rec = {"shape": [list(t.shape) for t in args], "dtype": "bfloat16",
+           "knobs_a": kn_a, "knobs_b": kn_b,
+           "ms": time_ms(lambda: kfn(*args, **kn_a)),
+           "ms_b": time_ms(lambda: kfn(*args, **kn_b)),
+           "plain_ms": time_ms(lambda: pfn(*args)), "library_ms": None,
+           "bytes": n_bytes, "operations": n_ops,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    emit(card, phase="kernels", name="ssd_scan", case="full_bf16", **rec)
+    return rec
 
 
 def kernels_phase(card: str, record_knobs, full_knobs, budget):
@@ -835,7 +879,7 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
             plain_ms = time_ms(lambda: pfn(*args, **kw))
             lib = library_call(name, args, kw)
             library_ms = time_ms(lib) if lib is not None else None
-            n_bytes, n_ops, rate = kernel_work(name, args, kw)
+            n_bytes, n_ops, rate = kernel_work(name, args, {**kw, **kn_a})
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = n_ops / rate * 1e3
             rec = {"shape": [list(t.shape) for t in args
@@ -852,6 +896,7 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
 
     for i, name in ((0, "cbp_matmul"), (1, "flash_attention")):
         errs[name] = max(errs[name], f32_full(card, gen, name, knobs_a[i]))
+    ssd_bf16 = ssd_bf16_full(card, gen, knobs_a[3])
 
     # The record's shapes (f32): planned and default knobs, against the
     # plain version on the card and on the CPU.
@@ -891,7 +936,11 @@ def kernels_phase(card: str, record_knobs, full_knobs, budget):
              "bound_ms": rows[name]["bound_ms"],
              "bound_by": rows[name]["bound_by"],
              "library_ms": rows[name]["library_ms"],
-             "shape": rows[name]["shape"]}
+             "shape": rows[name]["shape"],
+             **({"bf16_ms": ssd_bf16["ms"],
+                 "bf16_bound_ms": ssd_bf16["bound_ms"],
+                 "bf16_max_abs_err": ssd_bf16["max_abs_err"]}
+                if name == "ssd_scan" else {})}
             for name in REPLACES], counts
 
 

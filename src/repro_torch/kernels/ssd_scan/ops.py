@@ -5,7 +5,8 @@
 chunked SSD form of the state-space recurrence (an intra-chunk masked
 decay product plus a ``(P, N)`` state carried across chunks in order),
 B and C shared by the heads of a batch row, f32 math, output in x's dtype;
-written in CUDA C++ (``src/repro_torch/csrc/ssd_scan.cu``).
+written in CUDA C++ as one tensor-core kernel (``wgmma`` fed by TMA,
+``src/repro_torch/csrc/ssd_scan.cu``).
 
 :func:`ssd_scan_plain` is the sequential recurrence itself, step by step
 (the reference's ``ssd_ref``): the chunked kernel must match it within a
@@ -24,17 +25,37 @@ from repro_torch.kernels import build
 #: Launches of the CUDA kernel (not of the plain version).
 LAUNCHES = LaunchCounter("ssd_scan")
 
-_PIECE = 64          # rows / columns of a staged piece (csrc: kT)
+_TILE = 64           # steps of a tile (csrc: kT)
 MAX_HEAD_DIM = 128   # P (csrc: kMaxP)
-MAX_STATE = 8192     # P * N: 32 state entries per thread of 256
+MAX_STATE_DIM = 128  # N (csrc: kMaxN)
+MAX_STATE = 8192     # padded P * padded N: one warpgroup's registers
+
+#: Per element size: bf16 pieces of a raw input, B / x stages, raw f32
+#: box slots (csrc: Cfg<T>).
+_CFG = {4: (2, 2, 3), 2: (1, 4, 0)}
 
 
-def smem_bytes(head_dim: int, state_dim: int, chunk: int) -> int:
-    """Dynamic shared memory of a launch: the f32 state, the chunk's cs and
-    dt, the C, B and x*dt pieces and the masked decay product."""
-    P, N, T = head_dim, state_dim, _PIECE
-    return 4 * (P * (N + 1) + 2 * chunk + 2 * T * (N + 1) + T * P
-                + T * (T + 1))
+def _pad(n: int) -> int:
+    """P or N as the kernel stores it: 64, else a multiple of 64."""
+    return 64 if n <= 64 else 64 * -(-n // 64)
+
+
+def _up1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def smem_bytes(head_dim: int, state_dim: int, chunk: int,
+               dtype_bytes: int = 4) -> int:
+    """Dynamic shared memory of a launch (csrc: ``ssd_scan_smem_bytes``):
+    two C stages, the ring of B / x stages, the state's bf16 hi and lo,
+    float32's raw box ring, the mbarriers and two tables of 16 bytes per
+    64-step tile of the chunk.  P and N count padded to 64 or 128."""
+    pieces, stages, raw = _CFG[dtype_bytes]
+    kp, kn, t = _pad(head_dim), _pad(state_dim), _TILE
+    return (2 * _up1024(pieces * t * kn * 2 + t * 4)
+            + stages * _up1024(pieces * t * (kn + kp) * 2 + t * 8)
+            + 2 * kp * kn * 2 + raw * t * 128 + 256
+            + 32 * -(-chunk // t))
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
@@ -83,8 +104,9 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     ``(B, S, N)`` -> y ``(B, S, H, P)`` in x's dtype.
 
     ``S`` must be a multiple of ``chunk`` (as the Pallas kernel asserts);
-    on the card ``P <= 128``, ``P * N <= 8192`` and the shared memory of
-    :func:`smem_bytes` must fit the card's per-block limit.  CPU tensors
+    on the card ``P <= 128``, ``N <= 128``, P and N padded to 64 or 128
+    multiply to at most 8192, and the shared memory of :func:`smem_bytes`
+    must fit the card's per-block limit.  CPU tensors
     take :func:`ssd_scan_plain`; CUDA tensors launch the kernel on the
     current stream and raise if the launch is refused.
     """
@@ -96,14 +118,17 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
                          f"{x.device}")
     b, s, h, p = x.shape
     n = Bm.shape[-1]
-    if p > MAX_HEAD_DIM or p * n > MAX_STATE:
+    if (p > MAX_HEAD_DIM or n > MAX_STATE_DIM
+            or _pad(p) * _pad(n) > MAX_STATE):
         raise ValueError(f"(P, N) = ({p}, {n}) exceeds the kernel's limits "
-                         f"P <= {MAX_HEAD_DIM}, P * N <= {MAX_STATE}")
+                         f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE_DIM} and, "
+                         f"each padded to 64 or 128, P * N <= {MAX_STATE}")
     limit = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
-    if smem_bytes(p, n, chunk) > limit:
-        raise ValueError(f"chunk {chunk} needs {smem_bytes(p, n, chunk)} "
-                         f"bytes of shared memory; the card allows {limit}")
+    need = smem_bytes(p, n, chunk, x.element_size())
+    if need > limit:
+        raise ValueError(f"chunk {chunk} needs {need} bytes of shared "
+                         f"memory; the card allows {limit}")
     for name, t in (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

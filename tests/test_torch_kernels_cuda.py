@@ -325,26 +325,100 @@ def test_decode_takes_a_python_int_and_ignores_the_tail(card):
                                out, atol=1e-6, rtol=0)
 
 
+def _ssd_inputs(rng, b, s, h, p, n, dtype, dev, dt_scale=0.5):
+    """x, dt, A, Bm, Cm with the smoke's law: dt = softplus(z) dt_scale,
+    A = -exp(0.3 z), B and C halved normals."""
+    x = _randn(rng, (b, s, h, p), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        _randn(rng, (b, s, h), torch.float32, dev)).mul(dt_scale).to(dtype)
+    A = -torch.exp(_randn(rng, (h,), torch.float32, dev, 0.3))
+    Bm, Cm = (_randn(rng, (b, s, n), dtype, dev, 0.5) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_close(args, chunk):
+    got = _launched_once("ssd_scan", lambda: ssd_scan(*args, chunk=chunk))
+    assert torch.isfinite(got.float()).all()
+    _close("ssd_scan", got, ssd_scan_plain(*args, chunk=chunk))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("chunk", [8, 32, 96, 128, 384])
 def test_ssd_kernel_equals_plain(card, chunk, dtype):
     rng = np.random.default_rng(4)
-    b, s, h, p, n = 2, 384, 3, 16, 32
-    x = _randn(rng, (b, s, h, p), dtype, card)
-    dt = torch.nn.functional.softplus(
-        _randn(rng, (b, s, h), torch.float32, card)).mul(0.5).to(dtype)
-    A = -torch.exp(_randn(rng, (h,), torch.float32, card, 0.3))
-    Bm, Cm = (_randn(rng, (b, s, n), dtype, card, 0.5) for _ in range(2))
-    got = _launched_once("ssd_scan", lambda: ssd_scan(x, dt, A, Bm, Cm,
-                                                      chunk=chunk))
-    _close("ssd_scan", got, ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk))
+    _ssd_close(_ssd_inputs(rng, 2, 384, 3, 16, 32, dtype, card), chunk)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,chunk", [(4096, 4096), (288, 96), (96, 32),
+                                     (200, 40)])
+def test_ssd_chunk_spans_and_partial_tiles(card, s, chunk, dtype):
+    """Chunk 4096 (the planner's at its default budget) over S = 4096; S
+    a multiple of the chunk but not of the kernel's 64-step tile."""
+    rng = np.random.default_rng(5)
+    _ssd_close(_ssd_inputs(rng, 1, s, 2, 16, 32, dtype, card), chunk)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,n", [(128, 64), (64, 128), (96, 40), (5, 7)])
+def test_ssd_state_shapes(card, p, n, dtype):
+    """Both shapes at P * N = 8192, and P, N padded inside a tile."""
+    rng = np.random.default_rng(6)
+    _ssd_close(_ssd_inputs(rng, 1, 256, 2, p, n, dtype, card), 128)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", ["x", "B", "C", "all"])
+def test_ssd_reads_bases_off_16_bytes(card, dtype, which):
+    rng = np.random.default_rng(7)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, 192, 3, 16, 32, dtype, card)
+    if which in ("x", "all"):
+        x = _at_offset(x, 1)
+    if which in ("B", "all"):
+        Bm = _at_offset(Bm, 1)
+    if which in ("C", "all"):
+        Cm = _at_offset(Cm, 1)
+    assert all(t.is_contiguous() for t in (x, Bm, Cm))
+    _ssd_close((x, dt, A, Bm, Cm), 96)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("s,chunk", [(192, 96), (64, 8)])
+def test_ssd_next_chunk_never_reaches_the_outputs(card, s, chunk, offset,
+                                                 dtype):
+    """A chunk that ends inside a 64-step tile: NaN in every later step
+    leaves the first chunk's outputs bit for bit (TMA and copy loads)."""
+    rng = np.random.default_rng(9)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, s, 2, 16, 32, dtype, card)
+    if offset:
+        x, Bm, Cm = (_at_offset(t, offset) for t in (x, Bm, Cm))
+    clean = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    for t in (x, dt, Bm, Cm):
+        t[:, chunk:] = float("nan")
+    poisoned = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert torch.isfinite(clean.float()).all()
+    assert torch.equal(poisoned[:, :chunk], clean[:, :chunk])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_steep_decay_over_a_long_chunk(card, dtype):
+    """dt ~ 4 softplus(z): cs falls by ~3 a step, to ~-12,000 over chunk
+    4096, where exp(-cs_j) overflows; every output finite and within the
+    limits."""
+    rng = np.random.default_rng(8)
+    _ssd_close(_ssd_inputs(rng, 1, 4096, 2, 16, 32, dtype, card,
+                           dt_scale=4.0), 4096)
 
 
 def test_ssd_shared_memory_equals_the_kernels_own_count(card):
     fn = build.load("ssd_scan").ssd_scan_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    for p, n, chunk in [(64, 128, 128), (16, 32, 96), (8, 8, 4096)]:
-        assert fn(p, n, chunk) == smem_bytes(p, n, chunk)
+    for p, n, chunk in [(64, 128, 128), (128, 64, 4096), (16, 32, 96),
+                        (8, 8, 4096), (5, 7, 8), (64, 64, 20000)]:
+        for db in (2, 4):
+            assert fn(p, n, chunk, db) == smem_bytes(p, n, chunk, db)
 
 
 def test_ssd_refuses_a_state_it_cannot_hold(card):

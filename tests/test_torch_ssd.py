@@ -96,8 +96,19 @@ def test_rejects_what_the_jax_kernel_asserts(bad):
 
 
 def test_smem_bytes_counts_state_vectors_and_pieces():
-    # mamba2-1.3b: P = 64, N = 128, chunk 128 -> 133,120 bytes.
-    assert smem_bytes(64, 128, 128) == 4 * (64 * 129 + 256 + 2 * 64 * 129
-                                            + 64 * 64 + 64 * 65) == 133120
-    # The chunk adds only its cs and dt vectors.
-    assert smem_bytes(64, 128, 4096) - smem_bytes(64, 128, 128) == 8 * 3968
+    # mamba2-1.3b (P = 64, N = 128, chunk 128) in f32: two C stages of
+    # bf16 hi / lo (2 x 33,792), two B / x stages (2 x 50,176), the
+    # state's hi / lo (32,768), three raw f32 boxes (24,576), the
+    # mbarriers (256) and two 16-byte entries per 64-step tile, twice.
+    assert smem_bytes(64, 128, 128) == (2 * 33792 + 2 * 50176 + 32768
+                                        + 24576 + 256 + 64) == 225600
+    # bf16: one piece, four B / x stages, no raw ring.
+    assert smem_bytes(64, 128, 128, 2) == (2 * 17408 + 4 * 25600 + 32768
+                                           + 256 + 64) == 170304
+    # The chunk adds only its tile table: 32 bytes per 64 steps, so chunk
+    # 4096 fits at full width.
+    assert smem_bytes(64, 128, 4096) - smem_bytes(64, 128, 128) == 32 * 62
+    assert smem_bytes(64, 128, 4096) <= 232448
+    # P and N count padded to 64 or 128.
+    assert smem_bytes(16, 32, 96) == smem_bytes(64, 64, 128)
+    assert smem_bytes(128, 64, 128) == smem_bytes(65, 33, 65)
