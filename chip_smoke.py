@@ -28,8 +28,32 @@ It drives the port's main path, the paper's Table-3 sweep
              launches and the kernel's share of the wall time; its first
              32 mixes must reproduce phase 3.
 
-Phases 3 and 4 each add one profiled sweep for the device time by kernel
-and the card's busy share (device time over the unprofiled warm wall).
+Phases 3 and 4 run the timeline in length buckets (the default) and
+again as one stacked table: the two must be bit-identical, and both walls
+and greedy launch counts are printed beside the last ones measured
+before the buckets.  Each adds one
+profiled sweep for the device time by kernel and the card's busy share
+(device time over the unprofiled warm wall).
+
+The host-coordinated paths, each with the launch counts reset just
+before it and read just after:
+
+7. segment — the 14 managers over the 4096 mixes on the segment backend
+             (one model evaluation per Fig. 8 segment), held to phase 4's
+             stacked run: cache units and prefetch settings equal, IPC
+             within rtol 1e-9, bandwidth within rtol 1e-12.
+8. grid    — Fig. 12's CBP grids over the 4096 mixes, one
+             ``run_sweep(param_grid=...)`` each (reconfiguration interval
+             1/10/100 ms, minimum bandwidth 0.5/1.0 GB/s, sampling period
+             0.25/0.5/1.0 ms, 512 units with 4 more LLC cycles): capacity
+             invariants, and the first 32 mixes of each slice against
+             ``run_sweep(params=p)``; walls, launches and peak memory.
+9. managers — ``run_all_managers`` on the scalar plant for w1 and the
+             Fig. 1 pair (lbm + xalancbmk, 64 units, 16 GB/s), 100 ms:
+             weighted speedups within rtol 1e-9 of the reference's.
+10. characterization — Figs. 2-4 on the card: the Fig. 2 class counts,
+             the named values within rtol 1e-9 of the reference's, the
+             whole table within rtol 1e-9 of the port's CPU run.
 
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
@@ -65,7 +89,8 @@ under the planned knobs:
 Every phase prints one JSON line with the card's name and power limit,
 and a last ``done`` line gives the script's seconds; then comes the
 ``kernels`` line (every kernel's launches on its path, error, times and
-bound; the greedy's at the sweep's own boundary inputs).  Any failed check exits non-zero before the last line, which is
+bound; the greedy's at the sweep's own boundary inputs, with its launches
+on every path).  Any failed check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}`` on success.  Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -91,6 +116,48 @@ EXPECTED_GEOMEANS = {
     "CPpf": 1.3984, "CBP": 1.4995, "auction": 1.2679, "qos": 1.3012,
     "bank bw": 1.1172,
 }
+
+#: Weighted speedups of ``repro.sim.run_all_managers(apps, total_ms=100.0)``
+#: from the JAX reference package (its scalar path) in float64 on the CPU:
+#: w1, and the Fig. 1 pair lbm + xalancbmk at 64 units and 16 GB/s.
+EXPECTED_MANAGER_WS = {
+    "w1": {
+        "baseline": 1.0, "equal off": 1.2686207747,
+        "equal on": 1.44107048851, "only cache": 1.27680497982,
+        "only bw": 1.14646371984, "only pref": 1.17718867294,
+        "bw+pref": 1.36031508075, "bw+cache": 1.43256562304,
+        "cache+pref": 1.51276292988, "CPpf": 1.57323879932,
+        "CBP": 1.72709607072, "auction": 1.40497973629,
+        "qos": 1.41150245935, "bank bw": 1.18437732246},
+    "fig1": {
+        "baseline": 1.0, "equal off": 1.38639009706,
+        "equal on": 1.59299776874, "only cache": 1.6142227081,
+        "only bw": 1.15319336117, "only pref": 1.21637117807,
+        "bw+pref": 1.38143532716, "bw+cache": 1.831339208,
+        "cache+pref": 1.77907434008, "CPpf": 1.77792748354,
+        "CBP": 2.127461531, "auction": 1.78992738353,
+        "qos": 1.81588903673, "bank bw": 1.27809563945},
+}
+
+#: Figs. 2-4 of ``repro.sim.characterization`` (numpy): the paper's Fig. 2
+#: class counts, named values, and the sum of the whole sensitivity table.
+EXPECTED_CLASS_COUNTS = {
+    "CS-BS-PS": 6, "CS-BS": 8, "BS-PS": 6, "CS": 3, "BS": 3, "I": 3}
+EXPECTED_CHARACTERIZATION = {
+    "xalancbmk P-B": -0.0822767713258,
+    "hmmer P-L": 0.132251325322, "hmmer P-B": 0.0893947314368,
+    "gcc P-L": 0.00225704640665, "gcc P-H": 0.219894091663,
+    "fig4d gain": [1.09469437917, 0.988273816569, 0.753789396226,
+                   0.629445014925, 0.576064409372],
+    "fig4a on": [0.189565685978, 0.379131371956, 0.565479966002,
+                 0.670613710398, 0.717262870986],
+    "table sum": 25.8806139510873,
+}
+
+#: Phases 3-4 as last measured before the length buckets (PERF.md §5; H100
+#: 80GB HBM3, 700 W): warm walls and greedy launches.
+BEFORE_BUCKETS = {"sweep_wall_s": 1.444, "scale_wall_s": 2.193,
+                  "launches": 10}
 
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W limit: HBM3
 # bandwidth, and the FP64 rate outside the tensor cores (the greedy's
@@ -213,13 +280,16 @@ def greedy_inputs(B: int, masked: bool, seed: int):
 
 
 def sweep_boundary_inputs():
-    """The greedy's inputs at the first boundary of the 4096-mix sweep:
+    """The greedy's inputs at the first boundary of the 4096-mix sweep run
+    as one stacked table (all five Lookahead managers in one launch, as
+    the sweep ran before the buckets; in buckets the first launch holds
+    two of them):
     ``timeline.run_timelines`` hands them to ``lookahead_masked_traced``,
     which calls the kernel's wrapper through ``core.cache_controller``.  A
     stand-in wrapper there keeps a copy of the first call's arguments and
     stops the sweep; returns ``(curves, min_units, active, remaining)``."""
     from repro_torch.core import cache_controller
-    from repro_torch.sim import random_mixes, run_sweep
+    from repro_torch.sim import CMPConfig, random_mixes, run_sweep
 
     class Captured(Exception):
         pass
@@ -236,7 +306,7 @@ def sweep_boundary_inputs():
     cache_controller.lookahead_greedy = capture
     try:
         run_sweep(random_mixes(SCALE_MIXES, N_APPS, seed=SEED),
-                  total_ms=TOTAL_MS)
+                  total_ms=TOTAL_MS, config=CMPConfig(length_buckets=False))
     except Captured:
         pass
     finally:
@@ -434,6 +504,23 @@ def profile_sweep(mixes) -> dict:
             "top_device_s": [[k, v] for k, v in by_name.most_common(5)]}
 
 
+def bucket_comparison(mixes, bucketed, counts):
+    """Time the same sweep as one stacked table (``length_buckets=False``)
+    and hold the bucketed run to it bit for bit; returns the unbucketed
+    (warm wall, greedy launches)."""
+    from repro_torch.sim import CMPConfig
+
+    flat_cfg = CMPConfig(length_buckets=False)
+    timed_sweep(mixes, config=flat_cfg)                       # warm-up
+    flat, flat_s, flat_counts = timed_sweep(mixes, config=flat_cfg)
+    compare_sweeps(bucketed, flat, exact_floats=True,
+                   what="length buckets vs one table")
+    check(flat_counts["lookahead_greedy"] > 0
+          and counts["lookahead_greedy"] > 0,
+          "a sweep did not launch the lookahead_greedy kernel")
+    return flat_s, flat_counts["lookahead_greedy"]
+
+
 def sweep_phase(card: str):
     import numpy as np
     from repro_torch.sim import CMPConfig, random_mixes, run_sweep
@@ -456,16 +543,26 @@ def sweep_phase(card: str):
         mixes, config=CMPConfig(timeline_backend="fused"))
     compare_sweeps(gpu, fused, exact_floats=True,
                    what="stacked vs fused on the GPU")
+    flat_s, flat_launches = bucket_comparison(mixes, gpu, counts)
     prof = profile_sweep(mixes)
     emit(card, phase="sweep", mixes=SMALL_MIXES, managers=len(got),
          total_ms=TOTAL_MS, warm_wall_s=warm_s, cold_wall_s=cold_s,
          fused_wall_s=fused_s, cpu_port_wall_s=cpu_s,
          launches=counts, geomeans=got,
          max_rel_diff_vs_cpu=worst, stacked_equals_fused=True,
+         length_buckets={"bucketed_wall_s": warm_s,
+                         "bucketed_launches": counts["lookahead_greedy"],
+                         "one_table_wall_s": flat_s,
+                         "one_table_launches": flat_launches,
+                         "bit_identical": True,
+                         "before_buckets_wall_s":
+                         BEFORE_BUCKETS["sweep_wall_s"],
+                         "before_buckets_launches":
+                         BEFORE_BUCKETS["launches"]},
          device_busy_share=(prof["device_s"] / warm_s
                             if prof["device_s"] is not None else None),
          profile=prof)
-    return gpu, counts
+    return gpu, counts, flat_launches
 
 
 def scale_phase(card: str, small):
@@ -483,17 +580,11 @@ def scale_phase(card: str, small):
     for name in res.manager_names:
         check(res.ipc[name].shape == (SCALE_MIXES, N_APPS),
               f"scale sweep: {name} ipc shape {res.ipc[name].shape}")
-    head = type(res)(
-        manager_names=res.manager_names, mixes=res.mixes[:SMALL_MIXES],
-        ipc={k: v[:SMALL_MIXES] for k, v in res.ipc.items()},
-        final_alloc={k: type(a)(
-            cache_units=a.cache_units[:SMALL_MIXES],
-            bandwidth=a.bandwidth[:SMALL_MIXES],
-            prefetch_on=a.prefetch_on[:SMALL_MIXES])
-            for k, a in res.final_alloc.items()},
-        baseline_ipc=res.baseline_ipc[:SMALL_MIXES])
-    worst = compare_sweeps(head, small, exact_floats=False,
+    worst = compare_sweeps(head(res, SMALL_MIXES), small, exact_floats=False,
                            what="scale sweep's first 32 mixes vs phase 3")
+    torch.cuda.reset_peak_memory_stats()
+    flat_s, flat_launches = bucket_comparison(mixes, res, counts)
+    flat_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     prof = profile_sweep(mixes)
     greedy_s = prof["greedy_device_s"]
@@ -502,6 +593,16 @@ def scale_phase(card: str, small):
          warm_wall_s=warm_s, cold_wall_s=cold_s,
          mixes_per_s=SCALE_MIXES / warm_s, launches=counts,
          peak_device_gb=peak_gb,
+         length_buckets={"bucketed_wall_s": warm_s,
+                         "bucketed_launches": counts["lookahead_greedy"],
+                         "one_table_wall_s": flat_s,
+                         "one_table_launches": flat_launches,
+                         "one_table_peak_device_gb": flat_peak_gb,
+                         "bit_identical": True,
+                         "before_buckets_wall_s":
+                         BEFORE_BUCKETS["scale_wall_s"],
+                         "before_buckets_launches":
+                         BEFORE_BUCKETS["launches"]},
          kernel_share_of_warm_wall=(greedy_s / warm_s
                                     if greedy_s is not None else None),
          greedy_ms_per_launch=(greedy_s * 1e3 / counts["lookahead_greedy"]
@@ -510,7 +611,236 @@ def scale_phase(card: str, small):
                             if prof["device_s"] is not None else None),
          profile=prof, geomeans=res.summary(),
          max_rel_diff_head_vs_phase3=worst)
-    return counts
+    return res, counts, flat_launches
+
+
+def head(res, m: int):
+    """The first ``m`` mixes of a sweep result (a leading params axis, if
+    any, kept)."""
+    cut = (lambda a: a[..., :m, :])
+    return type(res)(
+        manager_names=res.manager_names, mixes=res.mixes[:m],
+        ipc={k: cut(v) for k, v in res.ipc.items()},
+        final_alloc={k: type(a)(
+            cache_units=cut(a.cache_units), bandwidth=cut(a.bandwidth),
+            prefetch_on=cut(a.prefetch_on))
+            for k, a in res.final_alloc.items()},
+        baseline_ipc=res.baseline_ipc[:m])
+
+
+# --------------------------------------------------------------------- #
+# phases 7-10: the host-coordinated paths
+# --------------------------------------------------------------------- #
+
+def segment_phase(card: str, stacked):
+    """All 14 managers over the 4096 mixes on the segment backend (one
+    model evaluation per Fig. 8 segment, the controllers between them),
+    held to phase 4's stacked run by the reference's contract."""
+    import numpy as np
+    from repro_torch.sim import CMPConfig, random_mixes
+
+    mixes = random_mixes(SCALE_MIXES, N_APPS, seed=SEED)
+    seg, wall_s, counts = timed_sweep(
+        mixes, config=CMPConfig(timeline_backend="segment"))
+    check(counts["lookahead_greedy"] > 0,
+          "the segment backend did not launch the lookahead_greedy kernel")
+    worst_ipc = worst_bw = 0.0
+    for name in stacked.manager_names:
+        a, b = seg.final_alloc[name], stacked.final_alloc[name]
+        check(np.array_equal(a.cache_units, b.cache_units),
+              f"segment vs stacked: cache_units differ for {name}")
+        check(np.array_equal(a.prefetch_on, b.prefetch_on),
+              f"segment vs stacked: prefetch_on differs for {name}")
+        check(np.isfinite(seg.ipc[name]).all(),
+              f"segment: non-finite IPC for {name}")
+        check(np.allclose(seg.ipc[name], stacked.ipc[name], rtol=RTOL,
+                          atol=0.0),
+              f"segment vs stacked: {name} IPC beyond rtol {RTOL}")
+        check(np.allclose(a.bandwidth, b.bandwidth, rtol=1e-12, atol=0.0),
+              f"segment vs stacked: {name} bandwidth beyond rtol 1e-12")
+        worst_ipc = max(worst_ipc, float(np.max(
+            np.abs(seg.ipc[name] - stacked.ipc[name])
+            / np.abs(stacked.ipc[name]))))
+        worst_bw = max(worst_bw, float(np.max(
+            np.abs(a.bandwidth - b.bandwidth) / np.abs(b.bandwidth))))
+    emit(card, phase="segment", mixes=SCALE_MIXES, managers=len(seg.ipc),
+         total_ms=TOTAL_MS, wall_s=wall_s, launches=counts,
+         max_rel_diff_ipc_vs_stacked=worst_ipc,
+         max_rel_diff_bandwidth_vs_stacked=worst_bw,
+         geomeans=seg.summary())
+    return counts["lookahead_greedy"]
+
+
+def fig12_grids():
+    """Fig. 12's CBP grids (``benchmarks/paper_figs.py::fig12_sensitivity``):
+    {family: (CMPConfig fields, [CBPParams fields])}."""
+    ivals, mbs, sps = (1.0, 10.0, 100.0), (0.5, 1.0), (0.25, 0.5, 1.0)
+    return {
+        "reconfig_interval": ({}, [
+            {"reconfiguration_interval_ms": ms, "prefetch_interval_ms": ms}
+            for ms in ivals]),
+        "min_bandwidth": ({}, [{"min_bandwidth_allocation": mb}
+                               for mb in mbs]),
+        "pf_sampling": ({}, [{"prefetch_sampling_period_ms": sp}
+                             for sp in sps]),
+        "cache_1MB_tile": ({"total_cache_units": 512,
+                            "llc_extra_cycles": 4.0}, [{}]),
+    }
+
+
+def grid_phase(card: str):
+    """Each Fig. 12 family as one ``run_sweep(param_grid=...)`` of CBP over
+    the 4096 mixes: capacity invariants over every (param, mix), and the
+    first 32 mixes of each slice against ``run_sweep(params=p)``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import CBPParams
+    from repro_torch.sim import CMPConfig, random_mixes, run_sweep
+
+    mixes = random_mixes(SCALE_MIXES, N_APPS, seed=SEED)
+    launches = 0
+    out = {}
+    for family, (cfg_fields, grid_fields) in fig12_grids().items():
+        cfg = CMPConfig(**cfg_fields)
+        grid = [CBPParams(**f) for f in grid_fields]
+        torch.cuda.reset_peak_memory_stats()
+        res, wall_s, counts = timed_sweep(mixes, managers=["CBP"],
+                                          config=cfg, param_grid=grid)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(counts["lookahead_greedy"] > 0,
+              f"grid {family} did not launch the lookahead_greedy kernel")
+        launches += counts["lookahead_greedy"]
+        alloc = res.final_alloc["CBP"]
+        P = len(grid)
+        check(res.ipc["CBP"].shape == (P, SCALE_MIXES, N_APPS)
+              and np.isfinite(res.ipc["CBP"]).all(),
+              f"grid {family}: IPC shape {res.ipc['CBP'].shape} or "
+              f"non-finite values")
+        check((alloc.cache_units.sum(axis=-1)
+               == cfg.total_cache_units).all(),
+              f"grid {family}: cache units do not sum to capacity")
+        for pi, p in enumerate(grid):
+            check((alloc.cache_units[pi] >= p.min_ways).all()
+                  and (alloc.bandwidth[pi]
+                       >= p.min_bandwidth_allocation - 1e-9).all(),
+                  f"grid {family}[{pi}]: an allocation under its floor")
+        check(np.allclose(alloc.bandwidth.sum(axis=-1), cfg.total_bandwidth,
+                          rtol=1e-9, atol=1e-6),
+              f"grid {family}: bandwidth does not sum to capacity")
+        worst = 0.0
+        small = head(res, SMALL_MIXES)
+        for pi, p in enumerate(grid):
+            one = run_sweep(mixes[:SMALL_MIXES], managers=["CBP"],
+                            total_ms=TOTAL_MS, params=p, config=cfg)
+            sliced = type(res)(
+                manager_names=["CBP"], mixes=small.mixes,
+                ipc={"CBP": small.ipc["CBP"][pi]},
+                final_alloc={"CBP": type(alloc)(
+                    cache_units=small.final_alloc["CBP"].cache_units[pi],
+                    bandwidth=small.final_alloc["CBP"].bandwidth[pi],
+                    prefetch_on=small.final_alloc["CBP"].prefetch_on[pi])},
+                baseline_ipc=small.baseline_ipc)
+            worst = max(worst, compare_sweeps(
+                sliced, one, exact_floats=False,
+                what=f"grid {family}[{pi}] vs run_sweep(params=p)"))
+        ws = res.weighted_speedup("CBP")
+        out[family] = {"params": grid_fields, "config": cfg_fields,
+                       "wall_s": wall_s,
+                       "launches": counts["lookahead_greedy"],
+                       "peak_device_gb": peak_gb,
+                       "geomeans": [float(g) for g in
+                                    np.asarray(res.geomean_speedup("CBP"))],
+                       "w1_like_first_mix_ws": [float(x) for x in ws[:, 0]],
+                       "max_rel_diff_head_vs_params_run": worst}
+        emit(card, phase="grid", family=family, mixes=SCALE_MIXES,
+             total_ms=TOTAL_MS, **out[family])
+        del res
+    return launches
+
+
+def managers_phase(card: str):
+    """``run_all_managers`` on the scalar plant on the card, for w1 and
+    for the Fig. 1 pair, against the reference's weighted speedups."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.sim import (WORKLOADS, CMPConfig, baseline_ipc,
+                                 run_all_managers, weighted_speedup)
+
+    launches = 0
+    cases = {"w1": (WORKLOADS["w1"], CMPConfig()),
+             "fig1": (["lbm", "xalancbmk"],
+                      CMPConfig(total_cache_units=64, total_bandwidth=16.0))}
+    for label, (apps, cfg) in cases.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_all_managers(apps, total_ms=TOTAL_MS, config=cfg)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        check(counts["lookahead_greedy"] > 0,
+              f"managers {label} did not launch the lookahead_greedy kernel")
+        launches += counts["lookahead_greedy"]
+        base = baseline_ipc(apps, cfg)
+        ws = {m: weighted_speedup(r.ipc, base) for m, r in res.items()}
+        worst = 0.0
+        for name, want in EXPECTED_MANAGER_WS[label].items():
+            check(np.isfinite(res[name].ipc).all(),
+                  f"managers {label}: non-finite IPC for {name}")
+            rel = abs(ws[name] - want) / want
+            check(rel <= RTOL, f"managers {label}: weighted speedup of "
+                               f"{name} {ws[name]!r} != reference {want!r}")
+            worst = max(worst, rel)
+        emit(card, phase="managers", workload=label, apps=len(apps),
+             total_ms=TOTAL_MS, wall_s=wall_s, launches=counts,
+             weighted_speedups=ws, max_rel_diff_vs_reference=worst)
+    return launches
+
+
+def characterization_phase(card: str):
+    """Figs. 2-4 on the card: the classification counts, the named
+    values against the reference's, and the whole table against the
+    port's CPU run."""
+    from repro_torch.sim import characterization as ch
+
+    t0 = time.perf_counter()
+    table = ch.sensitivity_table()
+    classes = {app: ch.classify(row) for app, row in table.items()}
+    hmmer = ch.prefetch_vs_allocation("hmmer")
+    gcc = ch.prefetch_vs_allocation("gcc")
+    fig4 = ch.leslie3d_interactions()
+    wall_s = time.perf_counter() - t0
+    counts = {}
+    for cls in classes.values():
+        counts[cls] = counts.get(cls, 0) + 1
+    check(counts == EXPECTED_CLASS_COUNTS,
+          f"Fig. 2 class counts {counts} != {EXPECTED_CLASS_COUNTS}")
+    got = {"xalancbmk P-B": table["xalancbmk"]["P-B"],
+           "hmmer P-L": hmmer["P-L"], "hmmer P-B": hmmer["P-B"],
+           "gcc P-L": gcc["P-L"], "gcc P-H": gcc["P-H"],
+           "fig4d gain": fig4["fig4d"]["gain"],
+           "fig4a on": fig4["fig4a"]["on"],
+           "table sum": sum(v for row in table.values()
+                            for v in row.values())}
+    worst = 0.0
+    for key, want in EXPECTED_CHARACTERIZATION.items():
+        for g, w in zip(*(v if isinstance(v, list) else [v]
+                          for v in (got[key], want))):
+            rel = abs(g - w) / abs(w)
+            check(rel <= RTOL, f"characterization {key}: {g!r} != {w!r}")
+            worst = max(worst, rel)
+    cpu = ch.sensitivity_table(device="cpu")
+    worst_cpu = 0.0
+    for app, row in table.items():
+        for key, v in row.items():
+            rel = abs(v - cpu[app][key]) / max(abs(cpu[app][key]), 1e-300)
+            check(rel <= RTOL, f"characterization {app} {key}: card {v!r} "
+                               f"!= CPU {cpu[app][key]!r}")
+            worst_cpu = max(worst_cpu, rel)
+    emit(card, phase="characterization", apps=len(table), wall_s=wall_s,
+         class_counts=counts, named=got,
+         max_rel_diff_vs_reference=worst, max_rel_diff_vs_cpu=worst_cpu)
 
 
 # --------------------------------------------------------------------- #
@@ -980,11 +1310,16 @@ def main() -> int:
         shapes = sorted({7 * SMALL_MIXES, G * SMALL_MIXES,
                          7 * SCALE_MIXES, G * SCALE_MIXES})
         kern = kernel_phase(card, shapes)
-        small, _ = sweep_phase(card)
-        counts = scale_phase(card, small)
+        small, _, flat_small = sweep_phase(card)
+        stacked, counts, flat_scale = scale_phase(card, small)
         record_knobs, full_knobs, budget = plan_phase(card)
         path_rows, path_counts = kernels_phase(card, record_knobs,
                                                full_knobs, budget)
+        launches_segment = segment_phase(card, stacked)
+        del stacked
+        launches_grid = grid_phase(card)
+        launches_managers = managers_phase(card)
+        characterization_phase(card)
 
         main_rec = kern["sweep"]
         kernels = [{
@@ -1003,6 +1338,11 @@ def main() -> int:
             "inputs": "the 4096-mix sweep's first boundary",
             "ms_synthetic": kern[(G * SCALE_MIXES, False)]["ms"],
             "launches_kernel_path": path_counts["lookahead_greedy"],
+            "launches_scale_one_table": flat_scale,
+            "launches_sweep_32_one_table": flat_small,
+            "launches_segment": launches_segment,
+            "launches_grid": launches_grid,
+            "launches_managers": launches_managers,
         }, *path_rows]
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """Bandwidth partitioning, paper §3.2.2 Algorithm 1 (counterpart of
-:func:`repro.core.bandwidth_controller.allocate_bandwidth_jax`).
+:func:`repro.core.bandwidth_controller.allocate_bandwidth_jax` and of the
+stateful :class:`~repro.core.bandwidth_controller.BandwidthController`).
 
 Every client first receives ``min_allocation``; the remainder is split
 pro-rata by accumulated queuing delay, evenly when no one queued.  The
@@ -7,6 +8,8 @@ pro-rata by accumulated queuing delay, evenly when no one queued.  The
 (:func:`check_bandwidth_floor`), validated once before a timeline runs.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,3 +39,38 @@ def check_bandwidth_floor(min_allocation, n_clients: int,
     if np.any(np.asarray(min_allocation, dtype=np.float64) * n_clients
               > total_bandwidth):
         raise ValueError("min_allocation * n exceeds total bandwidth")
+
+
+class BandwidthController:
+    """Stateful Algorithm 1 (counterpart of
+    :class:`repro.core.bandwidth_controller.BandwidthController`): the
+    per-client queuing delays accumulate across intervals (paper §3.3)
+    with a decay so stale phases wash out.
+
+    ``min_allocation`` and ``decay`` are scalars or per-row ``(..., 1)``
+    arrays; the delays are ``(..., n)`` tensors.
+    """
+
+    def __init__(self, total_bandwidth: float, min_allocation,
+                 decay=0.5):
+        self.total_bandwidth = total_bandwidth
+        self.min_allocation = min_allocation
+        self.decay = decay
+        self._acc: Optional[torch.Tensor] = None
+
+    def observe(self, queuing_delay: torch.Tensor) -> None:
+        delay = queuing_delay.to(torch.float64)
+        if self._acc is None:
+            self._acc = delay.clone()
+        else:
+            decay = torch.as_tensor(self.decay, dtype=delay.dtype,
+                                    device=delay.device)
+            self._acc = decay * self._acc + delay
+
+    def allocate(self) -> torch.Tensor:
+        if self._acc is None:
+            raise RuntimeError("no delays observed yet")
+        check_bandwidth_floor(self.min_allocation, self._acc.shape[-1],
+                              self.total_bandwidth)
+        return allocate_bandwidth(
+            self._acc, self.total_bandwidth, self.min_allocation)

@@ -9,12 +9,18 @@ equal the numpy golden (:func:`repro.core.cache_controller.
 lookahead_allocate` / ``cppf_allocate``) exactly, under the shared
 tie-breaks (lowest client index wins equal marginal utility; smallest step
 wins within a client; the spread orders by remaining gain, stable).
+
+:class:`CacheController` (counterpart of :class:`repro.core.
+cache_controller.CacheController`) is the stateful plants' allocator: it
+runs this batched greedy on the curves' device, or the host golden
+(:mod:`repro_torch.core.cache_controller_numpy`) when asked.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import cache_controller_numpy
 from repro_torch.device import F64, DeviceLike, resolve_device
 from repro_torch.kernels.lookahead_greedy import lookahead_greedy
 
@@ -186,3 +192,88 @@ def lookahead_allocate_grouped(curve_groups, total_units_list, min_units=4,
             for c, units, m in prepared]
     return [_finish(o, c.shape[:1], units)
             for o, (c, units, _m) in zip(outs, prepared)]
+
+
+class CacheController:
+    """The Lookahead allocator of a plant (counterpart of
+    :class:`repro.core.cache_controller.CacheController`).
+
+    ``allocate`` takes ``(..., n, total_units + 1)`` curves, as a tensor
+    or an array, and returns the ``(..., n)`` allocation as an int64
+    tensor on the curves' device (a CPU tensor for an array).  Two
+    backends:
+
+    * ``"device"``: one batched greedy over every leading row on the
+      curves' device (:func:`lookahead_traced` /
+      :func:`lookahead_masked_traced`), so on the card each call launches
+      ``csrc/lookahead_greedy.cu`` once; on the CPU it runs the kernel's
+      plain version.  The reference's ``"jax"`` and ``"pallas"`` backends
+      both name this one.
+    * ``"numpy"``: the host golden
+      (:mod:`repro_torch.core.cache_controller_numpy`), row by row.
+    """
+
+    def __init__(self, total_units: int, min_units: int = 4,
+                 backend: str = "device"):
+        backend = {"jax": "device", "pallas": "device"}.get(backend, backend)
+        if backend not in ("numpy", "device"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.total_units = total_units
+        self.min_units = min_units
+        self.backend = backend
+
+    def _prepare(self, utility_curves, min_units):
+        curves = torch.as_tensor(utility_curves, dtype=F64)
+        if curves.dim() < 2:
+            raise ValueError("utility curves must be at least 2-D")
+        batch_shape = tuple(curves.shape[:-2])
+        mu = self.min_units if min_units is None else min_units
+        mus = np.array(np.broadcast_to(
+            np.asarray(mu, dtype=np.int64), batch_shape).reshape(-1))
+        _validate(curves, self.total_units, mus)
+        return curves, batch_shape, mus
+
+    def _host(self, golden, curves, batch_shape, mus, *extra):
+        flat = curves.reshape((-1,) + tuple(curves.shape[-2:]))
+        flat = flat.cpu().numpy()
+        extra = [e.reshape(flat.shape[:2]) for e in extra]
+        out = np.stack([golden(flat[b], self.total_units, int(mus[b]),
+                               *[e[b] for e in extra])
+                        for b in range(flat.shape[0])])
+        return torch.as_tensor(out.reshape(batch_shape + out.shape[-1:]),
+                               device=curves.device)
+
+    def allocate(self, utility_curves, min_units=None) -> torch.Tensor:
+        """Lookahead over ``(..., n, U+1)`` curves -> ``(..., n)`` int64.
+
+        ``min_units`` overrides the configured floor, as a scalar or per
+        leading row (how the sweep batches ``CBPParams.min_ways``).
+        """
+        curves, batch_shape, mus = self._prepare(utility_curves, min_units)
+        if self.backend == "numpy":
+            return self._host(cache_controller_numpy.lookahead_allocate,
+                              curves, batch_shape, mus)
+        n = curves.shape[-2]
+        flat = curves.reshape((-1, n, self.total_units + 1))
+        out = lookahead_traced(flat, torch.as_tensor(mus, device=flat.device),
+                               self.total_units)
+        return out.to(torch.int64).reshape(batch_shape + (n,))
+
+    def allocate_masked(self, utility_curves, active,
+                        min_units=None) -> torch.Tensor:
+        """CPpf allocation over ``(..., n, U+1)`` curves: clients where
+        ``active`` (``(..., n)`` bool) is false are pinned at the floor,
+        the rest of the capacity is UCP-partitioned among the others."""
+        curves, batch_shape, mus = self._prepare(utility_curves, min_units)
+        n = curves.shape[-2]
+        act = torch.broadcast_to(
+            torch.as_tensor(active, dtype=torch.bool, device=curves.device),
+            batch_shape + (n,))
+        if self.backend == "numpy":
+            return self._host(cache_controller_numpy.cppf_allocate,
+                              curves, batch_shape, mus, act.cpu().numpy())
+        flat = curves.reshape((-1, n, self.total_units + 1))
+        out = lookahead_masked_traced(
+            flat, torch.as_tensor(mus, device=flat.device),
+            act.reshape(-1, n), self.total_units)
+        return out.to(torch.int64).reshape(batch_shape + (n,))

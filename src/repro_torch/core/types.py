@@ -4,7 +4,8 @@ from :mod:`repro.core.coordinator`).
 
 The port keeps its own copy of these numpy-only definitions so that it
 imports nothing of :mod:`repro`; ``tests/test_torch_sweep.py`` holds the
-two in step.
+two in step.  :class:`Allocation` and :class:`IntervalStats` also hold
+tensors (``Allocation.copy`` clones them).
 """
 from __future__ import annotations
 
@@ -42,9 +43,19 @@ class PrefetchMode(enum.Enum):
     DYNAMIC = "dynamic"  # Algorithm 2 per-client throttling
 
 
+def _copy(x):
+    """A copy of a numpy array or a tensor (``clone``), same device."""
+    return x.clone() if hasattr(x, "clone") else x.copy()
+
+
 @dataclasses.dataclass
 class Allocation:
     """A complete resource assignment for ``n`` clients.
+
+    The fields are numpy arrays in results handed back to the caller, and
+    tensors on the plant's device inside the host-coordinated loops
+    (:mod:`repro_torch.core.coordinator`, :mod:`repro_torch.sim.managers`);
+    a leading mix axis makes them ``(M, n)``.
 
     ``cache_units`` are allocation quanta (32 kB in the CMP model — one way of
     a 16-way 512 kB bank; KV pages or VMEM bytes in the TPU binding).
@@ -64,9 +75,9 @@ class Allocation:
 
     def copy(self) -> "Allocation":
         return Allocation(
-            cache_units=self.cache_units.copy(),
-            bandwidth=self.bandwidth.copy(),
-            prefetch_on=self.prefetch_on.copy(),
+            cache_units=_copy(self.cache_units),
+            bandwidth=_copy(self.bandwidth),
+            prefetch_on=_copy(self.prefetch_on),
             cache_mode=self.cache_mode,
             bandwidth_mode=self.bandwidth_mode,
             bandwidth_banks=self.bandwidth_banks,

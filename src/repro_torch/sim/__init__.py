@@ -1,9 +1,24 @@
 """The 16-core CMP evaluation substrate on tensors (counterpart of
 :mod:`repro.sim`): profiles, workloads, the interval model, the manager
-registry, the stacked Fig. 8 timelines and the Table-3 sweep."""
+registry, the scalar plant and its managers, the stacked Fig. 8
+timelines, the Table-3 sweep and the single-application
+characterization (:mod:`repro_torch.sim.characterization`)."""
 from repro_torch.sim.apps import AppArrays, from_numpy, stack_mixes
-from repro_torch.sim.managers import MANAGER_NAMES, TABLE3_MODES
-from repro_torch.sim.runner import CMPConfig, equal_share
+from repro_torch.sim.managers import (
+    MANAGER_NAMES,
+    TABLE3_MODES,
+    ManagerResult,
+    run_all_managers,
+    run_manager,
+)
+from repro_torch.sim.runner import (
+    CMPConfig,
+    CMPPlant,
+    antt,
+    baseline_ipc,
+    equal_share,
+    weighted_speedup,
+)
 from repro_torch.sim.sweep import (
     BatchedCMPPlant,
     SweepResult,
@@ -14,8 +29,10 @@ from repro_torch.sim.workloads import WORKLOADS, random_mixes
 
 __all__ = [
     "AppArrays", "from_numpy", "stack_mixes",
-    "MANAGER_NAMES", "TABLE3_MODES",
-    "CMPConfig", "equal_share",
+    "MANAGER_NAMES", "TABLE3_MODES", "ManagerResult", "run_all_managers",
+    "run_manager",
+    "CMPConfig", "CMPPlant", "antt", "baseline_ipc", "equal_share",
+    "weighted_speedup",
     "BatchedCMPPlant", "SweepResult", "baseline_ipc_batched", "run_sweep",
     "WORKLOADS", "random_mixes",
 ]

@@ -4,8 +4,9 @@
 The registry is a copy: the same 14 families, in the same order, with the
 same Table-3 modes, timeline variants, boundary-branch ids and bank
 counts, so ``MANAGER_NAMES`` and every sweep derive from one list.  The
-numpy host goldens and Fig. 5 static-grid vocabularies of the reference
-are not part of the port's sweep and are left out.
+Fig. 5 static-grid vocabularies of the reference are not ported yet; each
+family's ``host_golden`` (its loop on the scalar plant) is attached by
+:mod:`repro_torch.sim.managers`.
 
 :func:`auction_allocate` and :func:`qos_allocate` are the tensor
 counterparts of ``auction_allocate_jax`` / ``qos_allocate_jax`` (same op
@@ -14,7 +15,7 @@ order).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -49,7 +50,8 @@ class UnknownManagerError(ValueError):
 class PolicyFamily:
     """One manager family: Table-3 ``modes`` for the classic families
     (``None`` for CPpf's variant timeline and the registry policies), the
-    timeline ``variant``, the boundary-branch ids and the bank count."""
+    timeline ``variant``, the boundary-branch ids, the bank count and the
+    scalar host loop."""
 
     name: str
     modes: Optional[Tuple[Mode, Mode, PrefetchMode]] = None
@@ -57,6 +59,10 @@ class PolicyFamily:
     cache_policy: int = CACHE_LOOKAHEAD
     bw_policy: int = BW_ALG1
     bandwidth_banks: int = 1
+    #: ``(plant, total_ms, params) -> ManagerResult``: the family's loop on
+    #: the scalar plant, attached by :mod:`repro_torch.sim.managers` (the
+    #: registry imports no plant).
+    host_golden: Optional[Callable] = None
 
 
 REGISTRY: Dict[str, PolicyFamily] = {}

@@ -8,11 +8,28 @@ reference), runs the whole set as one stacked timeline on the device
 into weighted speedup against the shared equal-share baseline
 (:func:`baseline_ipc_batched`).
 
-Backends (``CMPConfig.timeline_backend``): ``"stacked"`` (the default)
-runs all managers in one stacked timeline; ``"fused"`` runs the same
-specs one manager at a time, the reference the stacked run equals bit for
-bit.  The reference's ``"segment"`` host loop and ``param_grid`` are not
-ported yet (ROADMAP Queue A, item 12) and raise ``NotImplementedError``.
+Backends (``CMPConfig.timeline_backend``): ``"stacked"`` runs all
+managers in one stacked timeline; ``"fused"`` runs the same specs one
+manager at a time, the reference the stacked run equals bit for bit;
+``"segment"`` is the host loop of one model evaluation per Fig. 8
+segment (:class:`BatchedCoordinator`, :func:`_run_cppf_batched`,
+:func:`repro_torch.sim.managers.policy_loop`), with the controllers'
+state as tensors on the device between them.  It is the only backend
+that honours the host allocator (``allocator_backend="numpy"``), and
+``"auto"`` picks it then.
+
+``param_grid=`` adds a leading ``CBPParams`` axis (the Fig. 12 design
+space): params that share a Fig. 8 schedule run as one batch of P_g x M
+rows with per-row tunables (:func:`_per_row_params`), and managers no
+parameter can change run once and are broadcast over P.
+
+Structure:
+
+* :class:`BatchedCMPPlant` — the interval model over M stacked mixes;
+  ``run_interval`` takes (M, n) allocation tensors and returns (M, n)
+  stats and (M, n, U+1) utility curves.
+* :class:`BatchedCoordinator` — :class:`~repro_torch.core.coordinator.
+  CBPCoordinator` with a leading mix axis.
 """
 from __future__ import annotations
 
@@ -20,31 +37,38 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core.bandwidth_controller import BandwidthController
+from repro_torch.core.cache_controller import CacheController
+from repro_torch.core.prefetch_controller import throttle_decision
 from repro_torch.core.types import (
     Allocation,
     CBPParams,
+    IntervalStats,
     Mode,
     PrefetchMode,
     ScheduleSegment,
     fig8_schedule,
 )
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import F64, DeviceLike, as_f64, resolve_device
 from repro_torch.sim import memsys, policies, timeline
 from repro_torch.sim.apps import AppArrays, app_fields, from_numpy, stack_mixes
-from repro_torch.sim.managers import MANAGER_NAMES
-from repro_torch.sim.runner import CMPConfig, equal_share
-
-_NOT_PORTED = ("is not ported yet: ROADMAP Queue A, item 12 (the segment "
-               "backend and param_grid of run_sweep)")
+from repro_torch.sim.managers import MANAGER_NAMES, policy_loop, to_host
+from repro_torch.sim.runner import (
+    CMPConfig,
+    CMPPlant,
+    _resolve_allocator_backend,
+    _resolve_timeline_backend,
+    equal_share,
+)
 
 
 class CapacityInvariantError(RuntimeError):
     """An allocation violated its sums-to-capacity invariant."""
 
 
-def _check_units_capacity(units: np.ndarray, total_units: int,
-                          where: str) -> None:
+def _check_units_capacity(units, total_units: int, where: str) -> None:
     sums = np.asarray(units).sum(axis=-1)
     if not (sums == total_units).all():
         raise CapacityInvariantError(
@@ -52,7 +76,7 @@ def _check_units_capacity(units: np.ndarray, total_units: int,
             f"total_cache_units {total_units}")
 
 
-def _check_bandwidth_capacity(bandwidth: np.ndarray, total_bandwidth: float,
+def _check_bandwidth_capacity(bandwidth, total_bandwidth: float,
                               where: str) -> None:
     sums = np.asarray(bandwidth).sum(axis=-1)
     if not np.allclose(sums, total_bandwidth, rtol=1e-9, atol=1e-6):
@@ -62,9 +86,11 @@ def _check_bandwidth_capacity(bandwidth: np.ndarray, total_bandwidth: float,
             f"{total_bandwidth}")
 
 
-class BatchedCMPPlant:
+class BatchedCMPPlant(CMPPlant):
     """The 16-core CMP interval model over M stacked workload mixes, with
-    the profile parameters on ``device`` as ``(M, n)`` float64 tensors."""
+    the profile parameters on ``device`` as ``(M, n)`` float64 tensors;
+    ``evaluate`` / ``run_interval`` (the scalar plant's) broadcast over
+    the mix axis."""
 
     def __init__(self, mixes: Sequence[Sequence[str]],
                  config: Optional[CMPConfig] = None,
@@ -72,15 +98,14 @@ class BatchedCMPPlant:
         self.mixes: List[List[str]] = [list(m) for m in mixes]
         self.apps: AppArrays = stack_mixes(self.mixes)
         self.config = config or CMPConfig()
-        backend = self.config.timeline_backend
-        if backend == "auto":
-            backend = "stacked"
-        if backend == "segment":
-            raise NotImplementedError(
-                f"timeline_backend='segment' {_NOT_PORTED}")
-        if backend not in ("stacked", "fused"):
-            raise ValueError(f"unknown timeline backend {backend!r}")
-        self.timeline_backend = backend
+        # "auto" keeps allocation on the device, and "auto" timelines
+        # stack the manager set — unless the allocator was forced onto
+        # the host, which only the segment loop can honour.
+        self.allocator_backend = _resolve_allocator_backend(self.config)
+        self.timeline_backend = _resolve_timeline_backend(
+            self.config,
+            default="stacked" if self.allocator_backend == "device"
+            else "segment")
         self.device = resolve_device(device)
         self.params = from_numpy(app_fields(self.apps), self.device)
         self.n_mixes, self.n_clients = np.asarray(self.apps.cpi_base).shape
@@ -100,6 +125,309 @@ def baseline_ipc_batched(plant: BatchedCMPPlant) -> np.ndarray:
         total_bandwidth_gbps=plant.total_bandwidth,
         llc_extra_cycles=plant.config.llc_extra_cycles)
     return ss.ipc.cpu().numpy()
+
+
+@dataclasses.dataclass
+class RowParams:
+    """Per-batch-row ``CBPParams`` tunables, broadcast-ready.
+
+    ``schedule`` carries the schedule-shaping fields (common to the whole
+    batch); the five other tunables are scalars without ``params_rows``
+    and per-row arrays with it — min_ways ``(M,)``, speedup_threshold /
+    min_bandwidth_allocation / bandwidth_delay_decay ``(M, 1)`` (against
+    (M, n) state) and atd_decay ``(M, 1, 1)`` (against the (M, n, U+1)
+    ATD counters).  The stacked timeline takes each as one value per mix
+    whatever its trailing axes.
+    """
+
+    schedule: CBPParams
+    min_ways: object
+    speedup_threshold: object
+    min_bandwidth_allocation: object
+    atd_decay: object
+    bandwidth_delay_decay: object
+
+    def tunables(self) -> dict:
+        """The five tunables as ``run_timelines`` keyword arguments."""
+        return {f: getattr(self, f) for f in (
+            "min_ways", "speedup_threshold", "min_bandwidth_allocation",
+            "atd_decay", "bandwidth_delay_decay")}
+
+
+def _per_row_params(
+    params: CBPParams,
+    params_rows: Optional[Sequence[CBPParams]],
+    n_rows: int,
+) -> RowParams:
+    """Resolve the per-row tunables of a (possibly params-batched) sweep.
+
+    With ``params_rows`` the non-schedule tunables become per-row arrays;
+    the schedule-shaping fields must agree across rows because every batch
+    row executes the same Fig. 8 segment list in lockstep.
+    """
+    if params_rows is None:
+        return RowParams(
+            schedule=params,
+            min_ways=params.min_ways,
+            speedup_threshold=params.speedup_threshold,
+            min_bandwidth_allocation=params.min_bandwidth_allocation,
+            atd_decay=params.atd_decay,
+            bandwidth_delay_decay=params.bandwidth_delay_decay,
+        )
+    rows = list(params_rows)
+    if len(rows) != n_rows:
+        raise ValueError(
+            f"params_rows has {len(rows)} entries for {n_rows} batch rows")
+    sched = {(p.reconfiguration_interval_ms, p.prefetch_sampling_period_ms)
+             for p in rows}
+    if len(sched) > 1:
+        raise ValueError(
+            "params_rows must share reconfiguration_interval_ms and "
+            "prefetch_sampling_period_ms (the Fig. 8 schedule is common to "
+            f"the whole batch); got {sorted(sched)}")
+    return RowParams(
+        schedule=rows[0],
+        min_ways=np.array([p.min_ways for p in rows], dtype=np.int64),
+        speedup_threshold=np.array(
+            [p.speedup_threshold for p in rows])[:, None],
+        min_bandwidth_allocation=np.array(
+            [p.min_bandwidth_allocation for p in rows])[:, None],
+        atd_decay=np.array([p.atd_decay for p in rows])[:, None, None],
+        bandwidth_delay_decay=np.array(
+            [p.bandwidth_delay_decay for p in rows])[:, None],
+    )
+
+
+class BatchedCoordinator:
+    """One Table-3 manager, coordinated across all mixes in lockstep.
+
+    :class:`~repro_torch.core.coordinator.CBPCoordinator` state for state
+    with a leading mix axis: ATD counters (M, n, U+1), a shared
+    :class:`~repro_torch.core.bandwidth_controller.BandwidthController`
+    over (M, n) delays, the prefetch A/B decision elementwise.  All mixes
+    share one Fig. 8 timeline, which is what makes lockstep exact.  Cache
+    allocation is one batched greedy per reconfiguration boundary
+    (:class:`~repro_torch.core.cache_controller.CacheController` with the
+    plant's allocator backend).
+    """
+
+    def __init__(
+        self,
+        plant: BatchedCMPPlant,
+        params: Optional[CBPParams] = None,
+        cache_mode: Mode = Mode.DYNAMIC,
+        bandwidth_mode: Mode = Mode.DYNAMIC,
+        prefetch_mode: PrefetchMode = PrefetchMode.DYNAMIC,
+        params_rows: Optional[Sequence[CBPParams]] = None,
+    ):
+        self.plant = plant
+        self.cache_mode = cache_mode
+        self.bandwidth_mode = bandwidth_mode
+        self.prefetch_mode = prefetch_mode
+
+        m, n = plant.n_mixes, plant.n_clients
+        dev = plant.device
+        self.rows = _per_row_params(params or CBPParams(), params_rows, m)
+        self.params = self.rows.schedule
+        self._ipc_acc = torch.zeros((m, n), dtype=F64, device=dev)
+        self._w_acc = 0.0
+
+        units = np.full(n, plant.total_cache_units // n, dtype=np.int64)
+        units[: plant.total_cache_units - int(units.sum())] += 1
+        self.alloc = Allocation(
+            cache_units=torch.as_tensor(np.tile(units, (m, 1)), device=dev),
+            bandwidth=torch.full((m, n), plant.total_bandwidth / n,
+                                 dtype=F64, device=dev),
+            prefetch_on=torch.full((m, n), prefetch_mode == PrefetchMode.ON,
+                                   dtype=torch.bool, device=dev),
+            cache_mode=cache_mode,
+            bandwidth_mode=bandwidth_mode,
+        )
+
+    # ------------------------------------------------------------------ #
+
+    def _run(self, alloc: Allocation, duration_ms: float) -> IntervalStats:
+        stats = self.plant.run_interval(alloc, duration_ms)
+        self._atd += stats.utility_curves * duration_ms
+        self.bw_ctl.observe(stats.queuing_delay_ns * duration_ms)
+        self._ipc_acc = self._ipc_acc + stats.ipc * duration_ms
+        self._w_acc += duration_ms
+        return stats
+
+    def _reconfigure(self) -> None:
+        if self.cache_mode == Mode.DYNAMIC:
+            self.alloc.cache_units = self.cache_ctl.allocate(
+                self._atd, min_units=self.rows.min_ways)
+        self._atd *= self._atd_decay
+        if self.bandwidth_mode == Mode.DYNAMIC:
+            self.alloc.bandwidth = self.bw_ctl.allocate()
+
+    def _with_prefetch(self, value: bool) -> Allocation:
+        alloc = self.alloc.copy()
+        alloc.prefetch_on = torch.full_like(self.alloc.prefetch_on, value)
+        return alloc
+
+    # ------------------------------------------------------------------ #
+
+    def run(self, total_ms: float) -> None:
+        """Execute the Fig. 8 timeline over every batch row: as one
+        stacked timeline of one manager, or, on the "segment" backend, as
+        the host loop of one model evaluation per segment.  Both run the
+        same :func:`~repro_torch.core.types.fig8_schedule` segment list."""
+        if self.plant.timeline_backend == "segment":
+            self._run_segments(fig8_schedule(
+                total_ms, self.params,
+                self.prefetch_mode == PrefetchMode.DYNAMIC))
+        else:
+            self._run_fused(total_ms)
+        if self.cache_mode == Mode.DYNAMIC:
+            _check_units_capacity(
+                self.alloc.cache_units.cpu().numpy(),
+                self.plant.total_cache_units, "BatchedCoordinator.run")
+        if self.bandwidth_mode == Mode.DYNAMIC:
+            _check_bandwidth_capacity(
+                self.alloc.bandwidth.cpu().numpy(),
+                self.plant.total_bandwidth, "BatchedCoordinator.run")
+
+    def _run_fused(self, total_ms: float) -> None:
+        spec = _fig8_spec(self.plant, self.cache_mode, self.bandwidth_mode,
+                          self.prefetch_mode, total_ms, self.params)
+        res = _timelines(self.plant, [spec], self.rows)[0]
+        dev = self.plant.device
+        self._ipc_acc = torch.as_tensor(res.ipc_acc, device=dev)
+        self._w_acc = res.w_acc
+        self.alloc.cache_units = torch.as_tensor(res.cache_units, device=dev)
+        self.alloc.bandwidth = torch.as_tensor(res.bandwidth, device=dev)
+        self.alloc.prefetch_on = torch.as_tensor(res.prefetch_on, device=dev)
+
+    def _run_segments(self, schedule) -> None:
+        # The controllers' state exists only on this path: the stacked
+        # timeline keeps its own.
+        plant = self.plant
+        m, n = plant.n_mixes, plant.n_clients
+        dev = plant.device
+        self.cache_ctl = CacheController(
+            plant.total_cache_units, self.params.min_ways,
+            backend=plant.allocator_backend)
+        self._atd = torch.zeros((m, n, plant.total_cache_units + 1),
+                                dtype=F64, device=dev)
+        self._atd_decay = as_f64(self.rows.atd_decay, dev)
+        self.bw_ctl = BandwidthController(
+            plant.total_bandwidth, self.rows.min_bandwidth_allocation,
+            decay=self.rows.bandwidth_delay_decay)
+        stats_off: Optional[IntervalStats] = None
+        for seg in schedule:
+            if seg.kind == "reconfigure":
+                self._reconfigure()
+            elif seg.kind == "sample_off":
+                stats_off = self._run(self._with_prefetch(False),
+                                      seg.duration_ms)
+            elif seg.kind == "sample_on":
+                stats_on = self._run(self._with_prefetch(True),
+                                     seg.duration_ms)
+                self.alloc.prefetch_on = throttle_decision(
+                    stats_on.ipc, stats_off.ipc, self.rows.speedup_threshold)
+            else:
+                self._run(self.alloc, seg.duration_ms)
+
+    def mean_ipc(self) -> torch.Tensor:
+        return self._ipc_acc / max(self._w_acc, 1e-12)
+
+
+def _run_cppf_batched(plant: BatchedCMPPlant, total_ms: float,
+                      params: CBPParams,
+                      params_rows: Optional[Sequence[CBPParams]] = None):
+    """CPpf on the segment backend (``managers._run_cppf`` with a leading
+    mix axis): each friendly-mask allocation is one batched greedy per
+    reallocation, including the one after the final interval."""
+    m, n = plant.n_mixes, plant.n_clients
+    total_units = plant.total_cache_units
+    dev = plant.device
+    rows = _per_row_params(params, params_rows, m)
+    params = rows.schedule
+    equal_units = torch.full((m, n), total_units // n, dtype=torch.int64,
+                             device=dev)
+    bw = torch.full((m, n), plant.total_bandwidth / n, dtype=F64, device=dev)
+
+    def make_alloc(units, pf_on) -> Allocation:
+        return Allocation(
+            cache_units=units, bandwidth=bw.clone(), prefetch_on=pf_on,
+            cache_mode=Mode.DYNAMIC, bandwidth_mode=Mode.UNPARTITIONED)
+
+    cache_ctl = CacheController(
+        total_units, params.min_ways, backend=plant.allocator_backend)
+    off = plant.run_interval(
+        make_alloc(equal_units, torch.zeros((m, n), dtype=torch.bool,
+                                            device=dev)),
+        params.prefetch_sampling_period_ms)
+    on = plant.run_interval(
+        make_alloc(equal_units, torch.ones((m, n), dtype=torch.bool,
+                                           device=dev)),
+        params.prefetch_sampling_period_ms)
+    friendly = throttle_decision(on.ipc, off.ipc, rows.speedup_threshold)
+
+    pf_on = torch.ones((m, n), dtype=torch.bool, device=dev)
+    units = equal_units.clone()
+    atd = torch.zeros((m, n, total_units + 1), dtype=F64, device=dev)
+    atd_decay = as_f64(rows.atd_decay, dev)
+    ipc_acc = torch.zeros((m, n), dtype=F64, device=dev)
+    w_acc = 0.0
+    t = 0.0
+    while t < total_ms - 1e-9:
+        dt = min(params.reconfiguration_interval_ms, total_ms - t)
+        stats = plant.run_interval(make_alloc(units, pf_on), dt)
+        atd += stats.utility_curves * dt
+        ipc_acc = ipc_acc + stats.ipc * dt
+        w_acc += dt
+        t += dt
+        curves = atd.clone()
+        atd *= atd_decay
+        units = cache_ctl.allocate_masked(
+            curves, ~friendly, min_units=rows.min_ways)
+    alloc = to_host(make_alloc(units, pf_on))
+    _check_units_capacity(alloc.cache_units, total_units, "CPpf")
+    _check_bandwidth_capacity(alloc.bandwidth, plant.total_bandwidth, "CPpf")
+    return ipc_acc / w_acc, alloc
+
+
+def _run_one_manager(
+    plant: BatchedCMPPlant,
+    name: str,
+    total_ms: float,
+    params: CBPParams,
+    params_rows: Optional[Sequence[CBPParams]] = None,
+) -> Tuple[np.ndarray, Allocation]:
+    """One manager over every batch row of ``plant`` on the segment
+    backend -> ((M, n) mean ipc, host allocation)."""
+    family = policies.get_family(name)
+    if family.variant == "cppf":
+        ipc, alloc = _run_cppf_batched(plant, total_ms, params, params_rows)
+        return ipc.cpu().numpy(), alloc
+    if family.modes is None:
+        # Registry policy / banked families: the scalar loop is
+        # shape-agnostic, with the per-row tunables threaded through.
+        rows = _per_row_params(params, params_rows, plant.n_mixes)
+        ipc, alloc = policy_loop(
+            plant, family, total_ms, rows.schedule,
+            min_ways=rows.min_ways,
+            min_bandwidth=rows.min_bandwidth_allocation,
+            atd_decay=rows.atd_decay,
+            bandwidth_delay_decay=rows.bandwidth_delay_decay)
+        alloc = to_host(alloc)
+        where = f"run_sweep[{name}]"
+        if _family_modes(family)[0] == Mode.DYNAMIC:
+            _check_units_capacity(
+                alloc.cache_units, plant.total_cache_units, where)
+        _check_bandwidth_capacity(
+            alloc.bandwidth, plant.total_bandwidth, where)
+        return ipc.cpu().numpy(), alloc
+    cache_mode, bw_mode, pf_mode = family.modes
+    coord = BatchedCoordinator(
+        plant, params=params, cache_mode=cache_mode,
+        bandwidth_mode=bw_mode, prefetch_mode=pf_mode,
+        params_rows=params_rows)
+    coord.run(total_ms)
+    return coord.mean_ipc().cpu().numpy(), to_host(coord.alloc)
 
 
 def _family_modes(family: policies.PolicyFamily
@@ -178,26 +506,30 @@ def _manager_spec(plant: BatchedCMPPlant, name: str, total_ms: float,
     return spec
 
 
+def _timelines(plant: BatchedCMPPlant, specs, rows: RowParams):
+    """``run_timelines`` of ``specs`` on the plant, with its tunables."""
+    return timeline.run_timelines(
+        plant.params, specs,
+        total_units=plant.total_cache_units,
+        total_bandwidth=plant.total_bandwidth,
+        llc_extra_cycles=plant.config.llc_extra_cycles,
+        length_buckets=plant.config.length_buckets,
+        **rows.tunables())
+
+
 def _run_managers_stacked(
     plant: BatchedCMPPlant,
     names: Sequence[str],
     total_ms: float,
     params: CBPParams,
+    params_rows: Optional[Sequence[CBPParams]] = None,
 ) -> Dict[str, Tuple[np.ndarray, Allocation]]:
-    """The manager set over every mix as one stacked timeline, with the
-    capacity invariants checked per manager."""
-    specs = [_manager_spec(plant, name, total_ms, params) for name in names]
-    results = timeline.run_timelines(
-        plant.params, specs,
-        total_units=plant.total_cache_units,
-        total_bandwidth=plant.total_bandwidth,
-        llc_extra_cycles=plant.config.llc_extra_cycles,
-        min_ways=params.min_ways,
-        speedup_threshold=params.speedup_threshold,
-        min_bandwidth_allocation=params.min_bandwidth_allocation,
-        atd_decay=params.atd_decay,
-        bandwidth_delay_decay=params.bandwidth_delay_decay,
-    )
+    """The manager set over every batch row as one stacked timeline, with
+    the capacity invariants checked per manager."""
+    rows = _per_row_params(params, params_rows, plant.n_mixes)
+    specs = [_manager_spec(plant, name, total_ms, rows.schedule)
+             for name in names]
+    results = _timelines(plant, specs, rows)
     out: Dict[str, Tuple[np.ndarray, Allocation]] = {}
     for spec, res in zip(specs, results):
         cache_mode, bw_mode, _pf = _family_modes(
@@ -221,36 +553,86 @@ def _run_managers_stacked(
     return out
 
 
+def _run_managers(
+    plant: BatchedCMPPlant,
+    names: Sequence[str],
+    total_ms: float,
+    params: CBPParams,
+    params_rows: Optional[Sequence[CBPParams]] = None,
+) -> Dict[str, Tuple[np.ndarray, Allocation]]:
+    """Dispatch a manager set to the plant's timeline backend: "stacked"
+    runs every manager in one stacked timeline, "fused" the same specs one
+    manager at a time, "segment" the host loop per manager."""
+    if plant.timeline_backend == "segment":
+        return {name: _run_one_manager(plant, name, total_ms, params,
+                                       params_rows)
+                for name in names}
+    if plant.timeline_backend == "stacked" and names:
+        return _run_managers_stacked(
+            plant, names, total_ms, params, params_rows)
+    out: Dict[str, Tuple[np.ndarray, Allocation]] = {}
+    for name in names:
+        out.update(_run_managers_stacked(
+            plant, [name], total_ms, params, params_rows))
+    return out
+
+
 @dataclasses.dataclass
 class SweepResult:
-    """Per-(manager, mix, app) outcome of one sweep, as host arrays."""
+    """Per-(manager, mix, app) outcome of one sweep, as host arrays.
+
+    Without ``param_grid`` the arrays are (M, n); with it they gain a
+    leading params axis, (P, M, n), and the metric helpers broadcast
+    accordingly (``weighted_speedup`` -> (P, M), ``geomean_speedup`` ->
+    (P,)).  The baseline is parameter-independent and stays (M, n).
+    """
 
     manager_names: List[str]
     mixes: List[List[str]]
-    ipc: Dict[str, np.ndarray]            # name -> (M, n)
+    ipc: Dict[str, np.ndarray]            # name -> (M, n) | (P, M, n)
     final_alloc: Dict[str, Allocation]    # name -> batched allocation
     baseline_ipc: np.ndarray              # (M, n)
+    param_grid: Optional[List[CBPParams]] = None
 
     @property
     def n_mixes(self) -> int:
         return len(self.mixes)
 
     def weighted_speedup(self, name: str) -> np.ndarray:
-        """Paper §4.3 weighted speedup per mix, shape (M,)."""
+        """Paper §4.3 weighted speedup per mix, shape (M,) (or (P, M))."""
         return np.mean(self.ipc[name] / self.baseline_ipc, axis=-1)
 
     def antt(self, name: str) -> np.ndarray:
-        """Paper §4.3 average normalized turnaround time per mix, (M,)."""
+        """Paper §4.3 avg normalized turnaround time per mix, (M,)/(P, M)."""
         return np.mean(self.baseline_ipc / self.ipc[name], axis=-1)
 
-    def geomean_speedup(self, name: str) -> float:
-        """Geomean of the weighted speedup over mixes."""
-        return float(np.exp(np.mean(np.log(self.weighted_speedup(name)))))
+    def geomean_speedup(self, name: str):
+        """Geomean over mixes: float, or (P,) with a ``param_grid``."""
+        g = np.exp(np.mean(np.log(self.weighted_speedup(name)), axis=-1))
+        return float(g) if np.ndim(g) == 0 else g
 
-    def summary(self) -> Dict[str, float]:
+    def summary(self) -> Dict[str, object]:
         """Geomean weighted speedup per manager, rounded to 4 places."""
-        return {name: round(self.geomean_speedup(name), 4)
-                for name in self.manager_names}
+        out: Dict[str, object] = {}
+        for name in self.manager_names:
+            g = self.geomean_speedup(name)
+            out[name] = (round(g, 4) if np.ndim(g) == 0
+                         else [round(float(x), 4) for x in np.asarray(g)])
+        return out
+
+
+def _params_static(name: str) -> bool:
+    """True when no CBPParams field can change the manager's result:
+    nothing dynamic means no reconfiguration, no A/B sampling, and a
+    time-weighted mean that is segmentation-invariant."""
+    family = policies.get_family(name)
+    if family.modes is None:
+        # CPpf and the registry policy / banked families all manage at
+        # least one resource dynamically.
+        return False
+    cm, bm, pm = family.modes
+    return (cm != Mode.DYNAMIC and bm != Mode.DYNAMIC
+            and pm != PrefetchMode.DYNAMIC)
 
 
 def run_sweep(
@@ -270,27 +652,84 @@ def run_sweep(
       managers: manager names (default: all ``MANAGER_NAMES``).
       total_ms / params / config: timeline length, CBP tunables and CMP
         configuration, as in the reference.
-      param_grid: not ported yet (raises ``NotImplementedError``).
+      param_grid: optional sequence of ``CBPParams``; adds a leading P
+        axis to the results (the Fig. 12 design space as one sweep).
+        Params sharing a Fig. 8 schedule run as one batch of P_g x M
+        rows; schedule-distinct params run as separate batches.  Mutually
+        exclusive with ``params``.
       device: ``None`` runs on the CUDA card and raises without one;
         ``"cpu"`` runs the same code on the CPU.
     """
-    if param_grid is not None:
-        raise NotImplementedError(f"param_grid {_NOT_PORTED}")
     plant = BatchedCMPPlant(mixes, config, device=device)
     names = list(MANAGER_NAMES) if managers is None else list(managers)
     policies.validate_manager_names(names)
-    params = params or CBPParams()
-    if plant.timeline_backend == "stacked":
-        runs = _run_managers_stacked(plant, names, total_ms, params)
-    else:
-        runs = {}
-        for name in names:
-            runs.update(_run_managers_stacked(plant, [name], total_ms,
-                                              params))
+
+    if param_grid is None:
+        runs = _run_managers(plant, names, total_ms, params or CBPParams())
+        return SweepResult(
+            manager_names=names,
+            mixes=plant.mixes,
+            ipc={name: runs[name][0] for name in names},
+            final_alloc={name: runs[name][1] for name in names},
+            baseline_ipc=baseline_ipc_batched(plant),
+        )
+
+    if params is not None:
+        raise ValueError("pass either params or param_grid, not both")
+    grid = list(param_grid)
+    if not grid:
+        raise ValueError("param_grid must be non-empty")
+    P, M, n = len(grid), plant.n_mixes, plant.n_clients
+    ipc = {name: np.empty((P, M, n)) for name in names}
+    units = {name: np.empty((P, M, n), dtype=np.int64) for name in names}
+    bws = {name: np.empty((P, M, n)) for name in names}
+    pfs = {name: np.empty((P, M, n), dtype=bool) for name in names}
+    modes: Dict[str, Tuple[Mode, Mode]] = {}
+
+    def store(name, idxs, mipc, alloc):
+        shape = (len(idxs), M, n)
+        ipc[name][idxs] = np.asarray(mipc).reshape(shape)
+        units[name][idxs] = np.asarray(alloc.cache_units).reshape(shape)
+        bws[name][idxs] = np.asarray(alloc.bandwidth).reshape(shape)
+        pfs[name][idxs] = np.asarray(alloc.prefetch_on).reshape(shape)
+        modes[name] = (alloc.cache_mode, alloc.bandwidth_mode)
+
+    # Params-static managers run once and are broadcast over P.
+    static_names = [name for name in names if _params_static(name)]
+    for name, (mipc, alloc) in _run_managers(
+            plant, static_names, total_ms, grid[0]).items():
+        store(name, list(range(P)), np.broadcast_to(mipc, (P, M, n)),
+              dataclasses.replace(alloc, **{
+                  f: np.broadcast_to(getattr(alloc, f), (P, M, n))
+                  for f in ("cache_units", "bandwidth", "prefetch_on")}))
+    grid_names = [name for name in names if name not in static_names]
+
+    groups: Dict[Tuple[float, float], List[int]] = {}
+    for pi, p in enumerate(grid):
+        key = (p.reconfiguration_interval_ms, p.prefetch_sampling_period_ms)
+        groups.setdefault(key, []).append(pi)
+
+    for idxs in (groups.values() if grid_names else ()):
+        gplant = BatchedCMPPlant([mix for _ in idxs for mix in plant.mixes],
+                                 config, device=plant.device)
+        rows = [grid[pi] for pi in idxs for _ in range(M)]
+        for name, (mipc, alloc) in _run_managers(
+                gplant, grid_names, total_ms, rows[0],
+                params_rows=rows).items():
+            store(name, idxs, mipc, alloc)
+
+    final = {
+        name: Allocation(
+            cache_units=units[name], bandwidth=bws[name],
+            prefetch_on=pfs[name], cache_mode=modes[name][0],
+            bandwidth_mode=modes[name][1])
+        for name in names
+    }
     return SweepResult(
         manager_names=names,
         mixes=plant.mixes,
-        ipc={name: runs[name][0] for name in names},
-        final_alloc={name: runs[name][1] for name in names},
+        ipc=ipc,
+        final_alloc=final,
         baseline_ipc=baseline_ipc_batched(plant),
+        param_grid=grid,
     )

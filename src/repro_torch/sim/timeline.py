@@ -21,9 +21,14 @@ allocators.
 Stacking is exact: rows never interact, the model runs on flat ``(K*M,
 n)`` rows, and ``NOOP`` slots are bitwise no-ops for a manager's state,
 so each manager's rows equal its standalone (``K = 1``) run bit for bit
-(``tests/test_torch_sweep.py``).  Single device only; sharding, the
-asynchronous dispatch and the length buckets of the JAX program are not
-ported yet.
+(``tests/test_torch_sweep.py``).  By default the managers are stacked in
+buckets of equal table length (:func:`_length_buckets`, the JAX program's
+frozen-row skipping): each bucket over its own slot count, the buckets
+sharing one slot loop, in which a slot evaluates only the buckets still
+running.  By the same argument the buckets equal the single table bit
+for bit.
+Single device only; sharding and the asynchronous dispatch of the JAX
+program are not ported yet.
 """
 from __future__ import annotations
 
@@ -224,16 +229,31 @@ class TimelineResult:
         return self.ipc_acc / max(self.w_acc, 1e-12)
 
 
-def _per_row(value, shape: Tuple[int, ...], dtype) -> np.ndarray:
-    """Materialize a scalar-or-per-row tunable at its full batch shape.
-
-    Per-row tunables carry the leading (manager, mix) axes explicitly.
-    """
+def _per_mix(value, M: int, dtype) -> np.ndarray:
+    """A scalar or per-mix tunable as an ``(M, 1)`` array.  A per-mix
+    value may carry trailing singleton axes (``RowParams``' ``(M, 1)`` and
+    ``(M, 1, 1)``): one value per mix either way."""
     arr = np.asarray(value, dtype=dtype)
-    # Scalars and per-mix arrays gain trailing singletons, then broadcast
-    # along the leading manager axis (the tunables are manager-shared).
-    arr = arr.reshape(arr.shape + (1,) * (len(shape) - 1 - arr.ndim))
-    return np.array(np.broadcast_to(arr, shape))
+    if arr.ndim:
+        arr = arr.reshape(M)[:, None]
+    return np.broadcast_to(arr, (M, 1))
+
+
+def _length_buckets(lens: Sequence[int]) -> List[List[int]]:
+    """Group manager indices for the bucketed stacked run (copy of the
+    reference's rule): managers share a bucket exactly when their segment
+    tables have the same length, so a bucket holds no frozen ``NOOP``
+    padding, and same-length Table-3 tables share their reconfigure
+    slots, so a bucket's boundary greedies merge into one launch.  Stable:
+    equal lengths keep spec order."""
+    order = sorted(range(len(lens)), key=lambda i: (lens[i], i))
+    buckets: List[List[int]] = []
+    for i in order:
+        if buckets and lens[i] == lens[buckets[-1][0]]:
+            buckets[-1].append(i)
+        else:
+            buckets.append([i])
+    return buckets
 
 
 def run_timelines(
@@ -249,6 +269,7 @@ def run_timelines(
     atd_decay=0.5,
     bandwidth_delay_decay=0.5,
     iters: int = FIXED_POINT_ITERS,
+    length_buckets: bool = True,
 ) -> List[TimelineResult]:
     """Run a whole manager set's timelines on the parameters' device.
 
@@ -257,8 +278,16 @@ def run_timelines(
         float64 tensor (:func:`repro_torch.sim.apps.from_numpy`).
       specs: one :class:`TimelineSpec` per manager.
       min_ways / speedup_threshold / min_bandwidth_allocation / atd_decay /
-        bandwidth_delay_decay: scalars or per-mix arrays, shared by every
-        manager.
+        bandwidth_delay_decay: scalars or per-mix arrays (trailing
+        singleton axes allowed), shared by every manager.
+      length_buckets: stack the managers in buckets of equal table length
+        (:func:`_length_buckets`), each over its own slot count, so a
+        short-table manager (a fully static one has one slot) is not
+        evaluated on every slot of the longest table.  The buckets share
+        the slot loop: a slot evaluates the rows of the buckets still
+        running, and the greedy launches once per slot on every bucket's
+        reallocating rows.  ``False`` stacks every manager into one table.
+        Results are bit-identical either way.
 
     Returns:
       One :class:`TimelineResult` of host arrays per spec; the results
@@ -270,21 +299,40 @@ def run_timelines(
     if len(shape) != 2:
         raise ValueError(f"params must be mix-stacked (M, n); got {shape}")
     M, n = shape
-    K = len(specs)
-    B = K * M
-    dev = params["cpi_base"].device
-    U = int(total_units)
 
     # Feasibility checks, once on the host before the run.
     if any(s.bandwidth_dynamic for s in specs):
         check_bandwidth_floor(min_bandwidth_allocation, n, total_bandwidth)
     if any(s.cache_dynamic for s in specs) and np.any(
-            np.asarray(min_ways, dtype=np.int64) * n > U):
+            np.asarray(min_ways, dtype=np.int64) * n > int(total_units)):
         raise ValueError("min_ways * n exceeds capacity")
 
     tables = [segment_table(s.schedule) for s in specs]
     accum = [RUN if s.variant == "cppf" else None for s in specs]
-    kinds, acc, reconf = stack_tables(tables, accum)          # (K, S)
+    K = len(specs)
+    buckets = (_length_buckets([len(t[0]) for t in tables])
+               if length_buckets else [list(range(K))])
+    # Each bucket stacks its own tables; the buckets' rows follow each
+    # other in ascending table length, padded with NOOP slots to the
+    # longest.  A bucket's rows past its own slot count are frozen, so the
+    # rows a slot evaluates are a suffix: from live_from[s] on.
+    parts = [stack_tables([tables[i] for i in b], [accum[i] for i in b])
+             for b in buckets]
+    S = max(part[0].shape[1] for part in parts)
+    kinds, acc, reconf = (np.concatenate([np.pad(
+        part[j], ((0, 0), (0, S - part[j].shape[1])), constant_values=fill)
+        for part in parts]) for j, fill in ((0, NOOP), (1, 0.0), (2, False)))
+    live_from = np.zeros(S, dtype=np.int64)
+    for b, part in zip(buckets, parts):
+        live_from[part[0].shape[1]:] += len(b) * M
+    order = [i for b in buckets for i in b]
+    specs = [specs[i] for i in order]
+    accum = [accum[i] for i in order]
+    tables = [tables[i] for i in order]
+
+    B = K * M
+    dev = params["cpi_base"].device
+    U = int(total_units)
 
     cache_dyn_k = np.array([s.cache_dynamic for s in specs])
     cache_pol_k = np.array([s.cache_policy for s in specs])
@@ -302,8 +350,8 @@ def run_timelines(
 
     def tunable(value, dtype=np.float64) -> torch.Tensor:
         """A scalar or per-mix tunable as a (B, 1) per-row tensor."""
-        return torch.as_tensor(
-            _per_row(value, (K, M, 1), dtype).reshape(B, 1), device=dev)
+        return torch.as_tensor(np.tile(_per_mix(value, M, dtype), (K, 1)),
+                               device=dev)
 
     def stacked(field, dtype) -> torch.Tensor:
         return torch.as_tensor(np.concatenate([
@@ -403,10 +451,18 @@ def run_timelines(
         if has_sampling:
             pf_f = torch.where(kind == SAMPLE_OFF, 0.0,
                                torch.where(kind == SAMPLE_ON, 1.0, pf_f))
+        # Frozen rows are skipped: they get IPC and delay 0, which their
+        # zero weights and NOOP masks leave out of every accumulator.
+        r0 = int(live_from[s])
         ipc, q_ns, *_ = memsys._evaluate_rowflags(
-            p, units.to(F64), bw, pf_f, total_cache_f, total_bw, llc_extra,
-            cache_part, bw_part, iters=iters, bandwidth_banks=banks_row,
+            {k: v[r0:] for k, v in p.items()}, units[r0:].to(F64), bw[r0:],
+            pf_f[r0:], total_cache_f, total_bw, llc_extra, cache_part[r0:],
+            bw_part[r0:], iters=iters,
+            bandwidth_banks=None if banks_row is None else banks_row[r0:],
             max_banks=max_banks)
+        if r0:
+            ipc = torch.cat([ipc.new_zeros((r0, n)), ipc])
+            q_ns = torch.cat([q_ns.new_zeros((r0, n)), q_ns])
         if any_policy:
             # QoS slowdown signal: reference = each row's first executed
             # segment, denominator = its latest one.
@@ -438,10 +494,22 @@ def run_timelines(
     host = {k: v.reshape(K, M, n).cpu().numpy() for k, v in
             {"ipc_acc": ipc_acc, "cache_units": units, "bandwidth": bw,
              "prefetch_on": pf, "active": active}.items()}
-    return [TimelineResult(
-        ipc_acc=host["ipc_acc"][k],
-        w_acc=float(acc[k].sum()),
-        cache_units=host["cache_units"][k].astype(np.int64),
-        bandwidth=host["bandwidth"][k],
-        prefetch_on=host["prefetch_on"][k],
-        active=host["active"][k]) for k in range(K)]
+    results: List[Optional[TimelineResult]] = [None] * K
+    for k, (i, table, only) in enumerate(zip(order, tables, accum)):
+        results[i] = TimelineResult(
+            ipc_acc=host["ipc_acc"][k],
+            w_acc=_weight(table, only),
+            cache_units=host["cache_units"][k].astype(np.int64),
+            bandwidth=host["bandwidth"][k],
+            prefetch_on=host["prefetch_on"][k],
+            active=host["active"][k])
+    return results
+
+
+def _weight(table, only: Optional[int]) -> float:
+    """The accumulated weight (ms) of one manager's own table, so it does
+    not depend on where stacking placed its rows."""
+    kinds, durations, _reconf = table
+    return float(np.where((kinds == only) if only is not None
+                          else np.ones_like(kinds, dtype=bool),
+                          durations, 0.0).sum())

@@ -29,6 +29,28 @@ GREEDY_SHAPES = ((8, 6, 48), (3, 16, 256))     # (B, n, U)
 
 SWEEP_MIXES, SWEEP_MS, SWEEP_SEED = 4, 20.0, 1
 
+#: ``run_sweep(param_grid=...)`` cases: (mixes, managers, total_ms, grid)
+#: with each ``CBPParams`` as a dict of its fields.  "fig12" is the
+#: reference test's case (two same-schedule params, one schedule-distinct;
+#: a params-static manager); "decay" sweeps the decay constants; "rows"
+#: gives its two same-schedule rows different values of all five per-row
+#: tunables, over every manager.
+GRID_CASES = {
+    "fig12": (("w1", "w2"), ("equal on", "CBP", "CPpf"), 20.0,
+              ({"min_bandwidth_allocation": 0.5},
+               {"min_bandwidth_allocation": 1.0},
+               {"reconfiguration_interval_ms": 5.0})),
+    "decay": (("w1",), ("CBP",), 30.0,
+              ({}, {"atd_decay": 0.9, "bandwidth_delay_decay": 0.2})),
+    "rows": (("w3", "w4"), None, 20.0,
+             ({"min_ways": 2, "speedup_threshold": 1.02,
+               "min_bandwidth_allocation": 0.5, "atd_decay": 0.7,
+               "bandwidth_delay_decay": 0.3},
+              {"min_ways": 6, "speedup_threshold": 1.2,
+               "min_bandwidth_allocation": 2.0, "atd_decay": 0.4,
+               "bandwidth_delay_decay": 0.8})),
+}
+
 #: Grouped-greedy cases: (B, n, U, min_units, kind).  U = 2048 is the
 #: reference planner's default budget (16 MiB / 8 KiB units), U = 28 an
 #: H100 block's 232,448 bytes of shared memory.
@@ -403,6 +425,25 @@ def _case_sweep(out: dict) -> None:
         out[f"{name}|geomean"] = np.float64(res.geomean_speedup(name))
 
 
+def _case_grid(out: dict) -> None:
+    from repro.core.types import CBPParams
+    from repro.sim import WORKLOADS, run_sweep
+
+    for case, (mixes, names, total_ms, grid) in GRID_CASES.items():
+        res = run_sweep([WORKLOADS[w] for w in mixes], managers=names,
+                        total_ms=total_ms,
+                        param_grid=[CBPParams(**p) for p in grid])
+        out[f"{case}|baseline_ipc"] = res.baseline_ipc
+        for name in res.manager_names:
+            alloc = res.final_alloc[name]
+            out[f"{case}|{name}|ipc"] = res.ipc[name]
+            out[f"{case}|{name}|units"] = np.asarray(alloc.cache_units)
+            out[f"{case}|{name}|bw"] = np.asarray(alloc.bandwidth)
+            out[f"{case}|{name}|pf"] = np.asarray(alloc.prefetch_on)
+            out[f"{case}|{name}|geomean"] = np.asarray(
+                res.geomean_speedup(name))
+
+
 def planner_curves(rng, B: int, n: int, U: int, kind: str) -> np.ndarray:
     """Tile-utility curves of random matmul shapes (``kind == "tiles"``,
     n = 3) or random greedy curves."""
@@ -436,7 +477,7 @@ def _case_planner(out: dict) -> None:
 
 CASES = {"lookahead": _case_lookahead, "memsys": _case_memsys,
          "controllers": _case_controllers, "sweep": _case_sweep,
-         "planner": _case_planner}
+         "planner": _case_planner, "grid": _case_grid}
 
 
 if __name__ == "__main__":

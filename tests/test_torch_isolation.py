@@ -43,10 +43,13 @@ NO_CARD = r'''
 import torch
 assert not torch.cuda.is_available()
 from repro_torch.core.cache_controller import lookahead_allocate
-from repro_torch.sim import random_mixes, run_sweep
+from repro_torch.sim import random_mixes, run_all_managers, run_sweep
+from repro_torch.sim.characterization import sensitivity_table
 import numpy as np
 for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
-             lambda: lookahead_allocate(np.zeros((16, 257)), 256)):
+             lambda: lookahead_allocate(np.zeros((16, 257)), 256),
+             lambda: run_all_managers(["lbm", "mcf"], total_ms=1.0),
+             sensitivity_table):
     try:
         call()
     except RuntimeError as exc:

@@ -84,15 +84,6 @@ def test_cpu_sweep_launches_no_kernel():
     assert all(n == 0 for n in counts.values()), counts
 
 
-def test_unported_backends_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_sweep(MIXES, total_ms=SWEEP_MS, device="cpu",
-                  config=CMPConfig(timeline_backend="segment"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_sweep(MIXES, total_ms=SWEEP_MS, device="cpu",
-                  param_grid=[types.CBPParams()])
-
-
 def test_unknown_manager_raises():
     with pytest.raises(ValueError, match="unknown manager"):
         run_sweep(MIXES, managers=["CBP", "nope"], device="cpu")
