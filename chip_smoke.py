@@ -13,8 +13,11 @@ It drives the port's main path, the paper's Table-3 sweep
 2. kernel  — the Lookahead greedy kernel against its plain PyTorch version
              on the card at the sweep's shapes (n=16, U=256, f64;
              concave, nonmonotone and flat curves; plain and masked), and
-             on the very inputs the 4096-mix sweep hands the kernel at its
-             first boundary (captured from the sweep, which stops there):
+             on the very inputs each path hands the kernel at its first
+             call (captured from the path, which stops there): the
+             4096-mix sweep in buckets and as one table, the segment
+             backend, each Fig. 12 grid (U=512 among them) and the scalar
+             plant on w1 and on the Fig. 1 pair (B=1, n=2, U=64):
              ``alloc`` and ``balance`` must be exactly equal.  Prints the
              kernel's and the plain version's times and the kernel's bound.
 3. sweep   — all 14 managers over ``random_mixes(32, 16, seed=1)``, 100 ms:
@@ -89,14 +92,16 @@ under the planned knobs:
 Every phase prints one JSON line with the card's name and power limit,
 and a last ``done`` line gives the script's seconds; then comes the
 ``kernels`` line (every kernel's launches on its path, error, times and
-bound; the greedy's at the sweep's own boundary inputs, with its launches
-on every path).  Any failed check exits non-zero before the last line, which is
+bound; the greedy's at the bucketed sweep's own boundary inputs, with its
+launches on every path and the shapes of every path's inputs it was held
+to).  Any failed check exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}`` on success.  Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import subprocess
@@ -279,17 +284,28 @@ def greedy_inputs(B: int, masked: bool, seed: int):
             torch.as_tensor(remaining, device=dev))
 
 
-def sweep_boundary_inputs():
-    """The greedy's inputs at the first boundary of the 4096-mix sweep run
-    as one stacked table (all five Lookahead managers in one launch, as
-    the sweep ran before the buckets; in buckets the first launch holds
-    two of them):
-    ``timeline.run_timelines`` hands them to ``lookahead_masked_traced``,
-    which calls the kernel's wrapper through ``core.cache_controller``.  A
-    stand-in wrapper there keeps a copy of the first call's arguments and
-    stops the sweep; returns ``(curves, min_units, active, remaining)``."""
+@contextlib.contextmanager
+def one_table():
+    """Stack every manager of a sweep into one table (the reference the
+    length buckets are held to) by making the bucket rule return one
+    group."""
+    from repro_torch.sim import timeline
+
+    real = timeline._length_buckets
+    timeline._length_buckets = lambda lens: [list(range(len(lens)))]
+    try:
+        yield
+    finally:
+        timeline._length_buckets = real
+
+
+def first_greedy_inputs(run):
+    """The greedy's inputs at the first call ``run()`` makes to it: every
+    path reaches the kernel's wrapper through ``core.cache_controller``,
+    where a stand-in keeps a copy of the first call's arguments and stops
+    the run.  Returns ``((curves, min_units, active, remaining),
+    total_units)``."""
     from repro_torch.core import cache_controller
-    from repro_torch.sim import CMPConfig, random_mixes, run_sweep
 
     class Captured(Exception):
         pass
@@ -297,22 +313,62 @@ def sweep_boundary_inputs():
     got = {}
 
     def capture(*args, total_units):
-        check(total_units == TOTAL_UNITS,
-              f"the sweep's greedy has U = {total_units}")
         got["args"] = tuple(t.clone() for t in args)
+        got["U"] = total_units
         raise Captured
 
     real = cache_controller.lookahead_greedy
     cache_controller.lookahead_greedy = capture
     try:
-        run_sweep(random_mixes(SCALE_MIXES, N_APPS, seed=SEED),
-                  total_ms=TOTAL_MS, config=CMPConfig(length_buckets=False))
+        run()
     except Captured:
         pass
     finally:
         cache_controller.lookahead_greedy = real
-    check("args" in got, "the 4096-mix sweep never called the greedy")
-    return got["args"]
+    check("args" in got, "a path never called the greedy")
+    return got["args"], got["U"]
+
+
+def path_captures():
+    """{case: runner} for every path whose greedy inputs the kernel is
+    held to: the 4096-mix sweep in buckets (the main path) and as one
+    table (all five Lookahead managers in one launch, B = 20,480), the
+    segment backend, each Fig. 12 grid (the 512-unit one included) and
+    the scalar plant on w1 and on the Fig. 1 pair (64 units; CPpf's
+    masked call too)."""
+    from repro_torch.core.types import CBPParams
+    from repro_torch.sim import (WORKLOADS, CMPConfig, random_mixes,
+                                 run_all_managers, run_sweep)
+
+    mixes = random_mixes(SCALE_MIXES, N_APPS, seed=SEED)
+
+    def sweep(**kw):
+        return lambda: run_sweep(mixes, total_ms=TOTAL_MS, **kw)
+
+    def flat():
+        with one_table():
+            run_sweep(mixes, total_ms=TOTAL_MS)
+
+    fig1 = CMPConfig(total_cache_units=64, total_bandwidth=16.0)
+    cases = {
+        "sweep_buckets": sweep(),
+        "sweep_one_table": flat,
+        "segment": sweep(config=CMPConfig(timeline_backend="segment")),
+    }
+    for family, (cfg, grid) in fig12_grids().items():
+        cases[f"grid_{family}"] = sweep(
+            managers=["CBP"], config=CMPConfig(**cfg),
+            param_grid=[CBPParams(**f) for f in grid])
+    cases.update({
+        "managers_w1": lambda: run_all_managers(
+            WORKLOADS["w1"], total_ms=TOTAL_MS),
+        "managers_fig1": lambda: run_all_managers(
+            ["lbm", "xalancbmk"], total_ms=TOTAL_MS, config=fig1),
+        "managers_fig1_cppf": lambda: run_all_managers(
+            ["lbm", "xalancbmk"], total_ms=TOTAL_MS, names=["CPpf"],
+            config=fig1),
+    })
+    return cases
 
 
 def greedy_bound(args, U: int):
@@ -350,8 +406,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 def kernel_phase(card: str, shapes) -> dict:
     """Compare and time the kernel at each batch size in ``shapes`` and on
-    the sweep's own boundary inputs; returns the measurements per (B,
-    masked), the latter under the key "sweep"."""
+    the inputs of each path's first greedy call (:func:`path_captures`);
+    returns the measurements per (B, masked) and per path."""
     import torch
     from repro_torch.kernels.lookahead_greedy import (
         LAUNCHES,
@@ -359,18 +415,20 @@ def kernel_phase(card: str, shapes) -> dict:
         lookahead_greedy_plain,
     )
 
-    U = TOTAL_UNITS
     out = {}
 
     def cases():
         for B in shapes:
             for masked in (False, True):
-                yield (B, masked), greedy_inputs(B, masked, seed=B + masked)
-        yield "sweep", sweep_boundary_inputs()
+                yield ((B, masked), greedy_inputs(B, masked, seed=B + masked),
+                       TOTAL_UNITS)
+        for key, run in path_captures().items():
+            yield (key, *first_greedy_inputs(run))
 
-    for key, args in cases():
-        B = args[0].shape[0]
-        masked = key == "sweep" or key[1]
+    for key, args, U in cases():
+        B, n = args[0].shape[:2]
+        masked = key[1] if isinstance(key, tuple) else bool(
+            (args[2] == 0).any())
         launches0 = LAUNCHES.count
         alloc, bal = lookahead_greedy(*args, total_units=U)
         torch.cuda.synchronize()
@@ -381,16 +439,15 @@ def kernel_phase(card: str, shapes) -> dict:
         err = max(int((alloc - alloc_p).abs().max()),
                   int((bal - bal_p).abs().max()))
         check(torch.equal(alloc, alloc_p) and torch.equal(bal, bal_p),
-              f"lookahead_greedy != plain at {key} (B={B}): "
+              f"lookahead_greedy != plain at {key} (B={B}, n={n}, U={U}): "
               f"{int((alloc != alloc_p).any(1).sum())} rows differ")
         lookahead_greedy(*args, total_units=U)          # warm-up
         ms = cuda_ms(lambda: lookahead_greedy(*args, total_units=U), 20)
         n_bytes, n_ops = greedy_bound(args, U)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / FP64_OPS_PER_S * 1e3
-        rec = {"inputs": "sweep boundary" if key == "sweep"
-               else "synthetic",
-               "B": B, "masked": masked, "n": N_APPS, "U": U,
+        rec = {"inputs": "synthetic" if isinstance(key, tuple) else key,
+               "B": B, "masked": masked, "n": n, "U": U,
                "launches": LAUNCHES.count - launches0,
                "exact": True, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "trips": work["trips"],
@@ -403,7 +460,7 @@ def kernel_phase(card: str, shapes) -> dict:
                                "Lookahead greedy"}
         emit(card, phase="kernel", name="lookahead_greedy", **rec)
         out[key] = rec
-        del alloc, bal, alloc_p, bal_p
+        del alloc, bal, alloc_p, bal_p, args
     return out
 
 
@@ -505,14 +562,12 @@ def profile_sweep(mixes) -> dict:
 
 
 def bucket_comparison(mixes, bucketed, counts):
-    """Time the same sweep as one stacked table (``length_buckets=False``)
-    and hold the bucketed run to it bit for bit; returns the unbucketed
-    (warm wall, greedy launches)."""
-    from repro_torch.sim import CMPConfig
-
-    flat_cfg = CMPConfig(length_buckets=False)
-    timed_sweep(mixes, config=flat_cfg)                       # warm-up
-    flat, flat_s, flat_counts = timed_sweep(mixes, config=flat_cfg)
+    """Time the same sweep as one stacked table (:func:`one_table`) and
+    hold the bucketed run to it bit for bit; returns the one table's (warm
+    wall, greedy launches)."""
+    with one_table():
+        timed_sweep(mixes)                                    # warm-up
+        flat, flat_s, flat_counts = timed_sweep(mixes)
     compare_sweeps(bucketed, flat, exact_floats=True,
                    what="length buckets vs one table")
     check(flat_counts["lookahead_greedy"] > 0
@@ -1321,7 +1376,8 @@ def main() -> int:
         launches_managers = managers_phase(card)
         characterization_phase(card)
 
-        main_rec = kern["sweep"]
+        main_rec = kern["sweep_buckets"]
+        paths = {k: v for k, v in kern.items() if isinstance(k, str)}
         kernels = [{
             "name": "lookahead_greedy",
             "route": "cuda",
@@ -1335,8 +1391,11 @@ def main() -> int:
             "bound_by": main_rec["bound_by"],
             "library_ms": None,
             "shape": [main_rec["B"], N_APPS, TOTAL_UNITS + 1],
-            "inputs": "the 4096-mix sweep's first boundary",
+            "inputs": "the 4096-mix sweep's first boundary, in buckets",
             "ms_synthetic": kern[(G * SCALE_MIXES, False)]["ms"],
+            "ms_one_table_boundary": kern["sweep_one_table"]["ms"],
+            "paths_checked": {k: [v["B"], v["n"], v["U"]]
+                              for k, v in paths.items()},
             "launches_kernel_path": path_counts["lookahead_greedy"],
             "launches_scale_one_table": flat_scale,
             "launches_sweep_32_one_table": flat_small,

@@ -22,14 +22,16 @@ from repro_torch.device import F64, DeviceLike, resolve_device
 
 class SampledATD:
     """Per-client utility counters with reconfiguration-time decay, as a
-    ``(n_clients, total_units + 1)`` float64 tensor on ``device``."""
+    ``batch_shape + (n_clients, total_units + 1)`` float64 tensor on
+    ``device`` (the sweep's segment loop keeps one row per mix)."""
 
     def __init__(self, n_clients: int, total_units: int,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, batch_shape: tuple = ()):
         self.n_clients = n_clients
         self.total_units = total_units
-        self._counters = torch.zeros((n_clients, total_units + 1),
-                                     dtype=F64, device=resolve_device(device))
+        self._counters = torch.zeros(
+            tuple(batch_shape) + (n_clients, total_units + 1),
+            dtype=F64, device=resolve_device(device))
 
     def record(self, utility_curves) -> None:
         """Accumulate an interval's hits-vs-units measurement.
@@ -45,13 +47,15 @@ class SampledATD:
                 f"{tuple(curves.shape)}")
         self._counters += curves
 
-    def halve(self, decay: float = 0.5) -> None:
+    def halve(self, decay=0.5) -> None:
         """Decay history so recent behaviour dominates (paper §3.3);
-        ``decay`` is wired from ``CBPParams.atd_decay``."""
+        ``decay`` is wired from ``CBPParams.atd_decay``: a scalar, or a
+        tensor of one value per leading row."""
         self._counters *= decay
 
     def utility_curves(self) -> torch.Tensor:
-        """Current hits-vs-units estimate, shape (n_clients, units + 1)."""
+        """Current hits-vs-units estimate, shape ``batch_shape +
+        (n_clients, units + 1)``."""
         return self._counters.clone()
 
     def reset(self) -> None:

@@ -19,7 +19,7 @@ which shrinks the next cache allocation of prefetch-friendly clients.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Protocol
+from typing import Dict, List, Optional, Protocol
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ from repro_torch.core.types import (
     PrefetchMode,
     fig8_schedule,
 )
-from repro_torch.device import F64
+from repro_torch.device import F64, lead_tensor
 
 
 class Plant(Protocol):
@@ -68,6 +68,11 @@ class IntervalRecord:
     stats: IntervalStats
 
 
+#: The CBPParams fields a caller may give one value per leading row.
+TUNABLES = ("min_ways", "speedup_threshold", "min_bandwidth_allocation",
+            "atd_decay", "bandwidth_delay_decay")
+
+
 class CBPCoordinator:
     """Dynamically manage cache, bandwidth and prefetch (paper Fig. 8).
 
@@ -75,6 +80,14 @@ class CBPCoordinator:
     Table-3 manager family; CBP proper is (DYNAMIC, DYNAMIC, DYNAMIC).
     Subset managers reuse the same loop with the unmanaged resource
     pinned.
+
+    Shape-agnostic over a leading mix axis: the plant is the scalar
+    :class:`~repro_torch.sim.runner.CMPPlant` (state ``(n,)``, one
+    :class:`IntervalRecord` per executed interval in ``history``) or the
+    sweep's ``BatchedCMPPlant`` (``n_mixes`` set, state ``(M, n)``, no
+    history).  ``tunables`` overrides any of :data:`TUNABLES` with one
+    value per mix (min_ways ``(M,)``, the others ``(M, 1)`` or ``(M, 1,
+    1)``); the schedule comes from ``params``.
     """
 
     def __init__(
@@ -84,6 +97,7 @@ class CBPCoordinator:
         cache_mode: Mode = Mode.DYNAMIC,
         bandwidth_mode: Mode = Mode.DYNAMIC,
         prefetch_mode: PrefetchMode = PrefetchMode.DYNAMIC,
+        tunables: Optional[Dict[str, object]] = None,
     ):
         self.plant = plant
         self.params = params or CBPParams()
@@ -92,18 +106,27 @@ class CBPCoordinator:
         self.prefetch_mode = prefetch_mode
 
         n = plant.n_clients
-        self.device = plant.device
-        self.atd = SampledATD(n, plant.total_cache_units, device=self.device)
+        self.device = dev = plant.device
+        m = getattr(plant, "n_mixes", None)
+        self._lead = () if m is None else (m,)
+        t = {f: getattr(self.params, f) for f in TUNABLES}
+        t.update(tunables or {})
+        self._min_ways = t["min_ways"]
+        self._atd_decay = lead_tensor(t["atd_decay"], self._lead, 2, F64, dev)
+        self.atd = SampledATD(n, plant.total_cache_units, device=dev,
+                              batch_shape=self._lead)
         self.cache_ctl = CacheController(
             plant.total_cache_units, self.params.min_ways,
-            backend=getattr(plant, "allocator_backend", "numpy"))
+            backend=plant.allocator_backend)
         self.bw_ctl = BandwidthController(
-            plant.total_bandwidth, self.params.min_bandwidth_allocation,
-            decay=self.params.bandwidth_delay_decay)
-        self.pf_ctl = PrefetchController(n, self.params.speedup_threshold,
-                                         device=self.device)
+            plant.total_bandwidth, t["min_bandwidth_allocation"],
+            decay=t["bandwidth_delay_decay"])
+        self.pf_ctl = PrefetchController(n, t["speedup_threshold"],
+                                         device=dev)
         self.history: List[IntervalRecord] = []
         self._t_ms = 0.0
+        self._ipc_acc = torch.zeros(self._lead + (n,), dtype=F64, device=dev)
+        self._w_acc = 0.0
 
         # Step 0 (Fig. 8): equal partitions, no miss/delay info yet.
         self.alloc = self._initial_allocation()
@@ -111,26 +134,28 @@ class CBPCoordinator:
     # ------------------------------------------------------------------ #
 
     def _initial_allocation(self) -> Allocation:
-        n = self.plant.n_clients
+        n, lead, dev = self.plant.n_clients, self._lead, self.device
         units = np.full(n, self.plant.total_cache_units // n, dtype=np.int64)
         units[: self.plant.total_cache_units - int(units.sum())] += 1
-        dev = self.device
         return Allocation(
-            cache_units=torch.as_tensor(units, device=dev),
-            bandwidth=torch.full((n,), self.plant.total_bandwidth / n,
+            cache_units=torch.as_tensor(
+                np.broadcast_to(units, lead + (n,)).copy(), device=dev),
+            bandwidth=torch.full(lead + (n,), self.plant.total_bandwidth / n,
                                  dtype=F64, device=dev),
-            prefetch_on=torch.full((n,), self.prefetch_mode == PrefetchMode.ON,
+            prefetch_on=torch.full(lead + (n,),
+                                   self.prefetch_mode == PrefetchMode.ON,
                                    dtype=torch.bool, device=dev),
             cache_mode=self.cache_mode,
             bandwidth_mode=self.bandwidth_mode,
         )
 
-    def _run(self, alloc: Allocation, duration_ms: float,
-             record: bool = True) -> IntervalStats:
+    def _run(self, alloc: Allocation, duration_ms: float) -> IntervalStats:
         stats = self.plant.run_interval(alloc, duration_ms)
         self.atd.record(stats.utility_curves * (duration_ms / 1.0))
         self.bw_ctl.observe(stats.queuing_delay_ns * duration_ms)
-        if record:
+        self._ipc_acc = self._ipc_acc + stats.ipc * duration_ms
+        self._w_acc += duration_ms
+        if not self._lead:
             self.history.append(
                 IntervalRecord(self._t_ms, duration_ms, alloc.copy(), stats))
         self._t_ms += duration_ms
@@ -142,8 +167,8 @@ class CBPCoordinator:
             # Interaction #5: the curves include prefetch hits, so
             # prefetch-friendly clients present flatter curves.
             self.alloc.cache_units = self.cache_ctl.allocate(
-                self.atd.utility_curves())
-        self.atd.halve(self.params.atd_decay)
+                self.atd.utility_curves(), min_units=self._min_ways)
+        self.atd.halve(self._atd_decay)
         if self.bandwidth_mode == Mode.DYNAMIC:
             # Interactions #1/#2: delays reflect the cache allocation and
             # prefetch misses of the prior interval.
@@ -184,10 +209,4 @@ class CBPCoordinator:
     def mean_ipc(self) -> np.ndarray:
         """Time-weighted mean performance per client over the run, on the
         host."""
-        total = torch.zeros(self.plant.n_clients, dtype=F64,
-                            device=self.device)
-        t = 0.0
-        for rec in self.history:
-            total = total + rec.stats.ipc * rec.duration_ms
-            t += rec.duration_ms
-        return (total / max(t, 1e-12)).cpu().numpy()
+        return (self._ipc_acc / max(self._w_acc, 1e-12)).cpu().numpy()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 F64 = torch.float64
@@ -31,3 +32,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def as_f64(x, device: Optional[torch.device]) -> torch.Tensor:
     """A float64 tensor on ``device`` (numpy arrays, scalars, tensors)."""
     return torch.as_tensor(x, dtype=F64, device=device)
+
+
+def lead_tensor(value, lead: tuple, trailing: int, dtype,
+                device: Optional[torch.device]) -> torch.Tensor:
+    """A scalar or per-row tunable as a tensor that broadcasts against
+    state with ``lead`` leading axes and ``trailing`` more: shape ``lead +
+    (1,) * trailing``, or 0-D for a scalar."""
+    t = torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
+    return t if t.dim() == 0 else t.reshape(lead + (1,) * trailing)

@@ -33,7 +33,7 @@ from repro_torch.core.cache_controller import CacheController
 from repro_torch.core.coordinator import CBPCoordinator
 from repro_torch.core.prefetch_controller import throttle_decision
 from repro_torch.core.types import Allocation, CBPParams, Mode, fig8_schedule
-from repro_torch.device import F64, DeviceLike
+from repro_torch.device import F64, DeviceLike, lead_tensor
 from repro_torch.sim import policies
 from repro_torch.sim.runner import CMPConfig, CMPPlant
 
@@ -85,14 +85,6 @@ def run_manager(
                          final_alloc=to_host(coord.alloc))
 
 
-def _lead_tensor(value, lead, trailing: int, dtype, device) -> torch.Tensor:
-    """A scalar or per-mix tunable as a tensor broadcasting against state
-    with ``lead`` leading axes and ``trailing`` more: ``lead + (1,) *
-    trailing``, or 0-D for a scalar."""
-    t = torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
-    return t if t.dim() == 0 else t.reshape(lead + (1,) * trailing)
-
-
 def policy_loop(
     plant,
     family: policies.PolicyFamily,
@@ -137,10 +129,10 @@ def policy_loop(
     if bandwidth_delay_decay is None:
         bandwidth_delay_decay = params.bandwidth_delay_decay
     check_bandwidth_floor(min_bandwidth, n, total_bw)
-    mw = _lead_tensor(min_ways, lead, 1, torch.int64, dev)
-    min_bw = _lead_tensor(min_bandwidth, lead, 1, F64, dev)
-    atd_decay = _lead_tensor(atd_decay, lead, 2, F64, dev)
-    bw_decay = _lead_tensor(bandwidth_delay_decay, lead, 1, F64, dev)
+    mw = lead_tensor(min_ways, lead, 1, torch.int64, dev)
+    min_bw = lead_tensor(min_bandwidth, lead, 1, F64, dev)
+    atd_decay = lead_tensor(atd_decay, lead, 2, F64, dev)
+    bw_decay = lead_tensor(bandwidth_delay_decay, lead, 1, F64, dev)
 
     # auction/qos allocate both resources from their boundary branch;
     # "bank bw" keeps cache at the equal split and runs Algorithm 1
@@ -196,23 +188,38 @@ def policy_loop(
     return ipc_acc / max(w_acc, 1e-12), make_alloc(units, bw)
 
 
-def _run_cppf(plant: CMPPlant, total_ms: float, params: CBPParams):
+def _run_cppf(plant, total_ms: float, params: CBPParams, *,
+              min_ways=None, atd_decay=None, speedup_threshold=None):
     """CPpf: prefetch-aware LLC partitioning (paper §4.4): a friendliness
     A/B probe at equal partitioning, then per interval run and reallocate
     (friendly apps at the minimum, UCP for the others over the remaining
-    capacity); bandwidth unpartitioned, prefetching enabled.  Returns
-    ``(mean_ipc, final Allocation)`` as tensors."""
+    capacity), including after the final interval; bandwidth
+    unpartitioned, prefetching enabled.
+
+    Shape-agnostic over a leading mix axis as :func:`policy_loop` is, with
+    per-row ``min_ways`` ``(M,)`` and ``atd_decay`` / ``speedup_threshold``
+    with trailing singleton axes for the batched segment path; each
+    reallocation is one greedy over every row.  Returns ``(mean_ipc, final
+    Allocation)`` as tensors."""
     n = plant.n_clients
     total_units = plant.total_cache_units
     dev = plant.device
-    atd = SampledATD(n, total_units, device=dev)
-    cache_ctl = CacheController(
-        total_units, params.min_ways,
-        backend=getattr(plant, "allocator_backend", "numpy"))
+    m = getattr(plant, "n_mixes", None)
+    lead = () if m is None else (m,)
+    if min_ways is None:
+        min_ways = params.min_ways
+    atd_decay = lead_tensor(params.atd_decay if atd_decay is None
+                            else atd_decay, lead, 2, F64, dev)
+    threshold = lead_tensor(params.speedup_threshold if speedup_threshold
+                            is None else speedup_threshold, lead, 1, F64, dev)
+    atd = SampledATD(n, total_units, device=dev, batch_shape=lead)
+    cache_ctl = CacheController(total_units, params.min_ways,
+                                backend=plant.allocator_backend)
 
-    equal_units = torch.full((n,), total_units // n, dtype=torch.int64,
-                             device=dev)
-    bw = torch.full((n,), plant.total_bandwidth / n, dtype=F64, device=dev)
+    equal_units = torch.full(lead + (n,), total_units // n,
+                             dtype=torch.int64, device=dev)
+    bw = torch.full(lead + (n,), plant.total_bandwidth / n, dtype=F64,
+                    device=dev)
 
     def make_alloc(units, pf_on) -> Allocation:
         return Allocation(
@@ -220,18 +227,20 @@ def _run_cppf(plant: CMPPlant, total_ms: float, params: CBPParams):
             cache_mode=Mode.DYNAMIC, bandwidth_mode=Mode.UNPARTITIONED)
 
     off = plant.run_interval(
-        make_alloc(equal_units, torch.zeros(n, dtype=torch.bool,
+        make_alloc(equal_units, torch.zeros(lead + (n,), dtype=torch.bool,
                                             device=dev)),
         params.prefetch_sampling_period_ms)
     on = plant.run_interval(
-        make_alloc(equal_units, torch.ones(n, dtype=torch.bool, device=dev)),
+        make_alloc(equal_units, torch.ones(lead + (n,), dtype=torch.bool,
+                                           device=dev)),
         params.prefetch_sampling_period_ms)
-    friendly = throttle_decision(on.ipc, off.ipc, params.speedup_threshold)
+    friendly = throttle_decision(on.ipc, off.ipc, threshold)
 
-    pf_on = torch.ones(n, dtype=torch.bool, device=dev)  # Table 3: enabled
+    # Table 3: prefetching enabled.
+    pf_on = torch.ones(lead + (n,), dtype=torch.bool, device=dev)
     units = equal_units.clone()
     t = 0.0
-    ipc_acc = torch.zeros(n, dtype=F64, device=dev)
+    ipc_acc = torch.zeros(lead + (n,), dtype=F64, device=dev)
     w_acc = 0.0
     while t < total_ms - 1e-9:
         dt = min(params.reconfiguration_interval_ms, total_ms - t)
@@ -241,8 +250,9 @@ def _run_cppf(plant: CMPPlant, total_ms: float, params: CBPParams):
         w_acc += dt
         t += dt
         curves = atd.utility_curves()
-        atd.halve(params.atd_decay)
-        units = cache_ctl.allocate_masked(curves, ~friendly)
+        atd.halve(atd_decay)
+        units = cache_ctl.allocate_masked(curves, ~friendly,
+                                          min_units=min_ways)
     return ipc_acc / w_acc, make_alloc(units, pf_on)
 
 

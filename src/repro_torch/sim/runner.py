@@ -44,11 +44,6 @@ class CMPConfig:
     #: between them).  "auto" stacks unless the allocator is "numpy",
     #: which only the segment loop can honour.
     timeline_backend: str = "auto"
-    #: Whether the stacked timeline runs managers of different table
-    #: lengths as separate buckets, each over its own slot count
-    #: (:func:`repro_torch.sim.timeline.run_timelines`); False runs one
-    #: table, the reference the buckets are held to bit for bit.
-    length_buckets: bool = True
 
 
 def _resolve_allocator_backend(config: CMPConfig,

@@ -12,11 +12,11 @@ Backends (``CMPConfig.timeline_backend``): ``"stacked"`` runs all
 managers in one stacked timeline; ``"fused"`` runs the same specs one
 manager at a time, the reference the stacked run equals bit for bit;
 ``"segment"`` is the host loop of one model evaluation per Fig. 8
-segment (:class:`BatchedCoordinator`, :func:`_run_cppf_batched`,
-:func:`repro_torch.sim.managers.policy_loop`), with the controllers'
-state as tensors on the device between them.  It is the only backend
-that honours the host allocator (``allocator_backend="numpy"``), and
-``"auto"`` picks it then.
+segment (:class:`BatchedCoordinator` and the scalar plant's CPpf and
+policy loops, :mod:`repro_torch.sim.managers`, over a leading mix axis),
+with the controllers' state as tensors on the device between them.  It
+is the only backend that honours the host allocator
+(``allocator_backend="numpy"``), and ``"auto"`` picks it then.
 
 ``param_grid=`` adds a leading ``CBPParams`` axis (the Fig. 12 design
 space): params that share a Fig. 8 schedule run as one batch of P_g x M
@@ -29,7 +29,7 @@ Structure:
   ``run_interval`` takes (M, n) allocation tensors and returns (M, n)
   stats and (M, n, U+1) utility curves.
 * :class:`BatchedCoordinator` — :class:`~repro_torch.core.coordinator.
-  CBPCoordinator` with a leading mix axis.
+  CBPCoordinator` on the batched plant, with per-row tunables.
 """
 from __future__ import annotations
 
@@ -39,22 +39,24 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.bandwidth_controller import BandwidthController
-from repro_torch.core.cache_controller import CacheController
-from repro_torch.core.prefetch_controller import throttle_decision
+from repro_torch.core.coordinator import TUNABLES, CBPCoordinator
 from repro_torch.core.types import (
     Allocation,
     CBPParams,
-    IntervalStats,
     Mode,
     PrefetchMode,
     ScheduleSegment,
     fig8_schedule,
 )
-from repro_torch.device import F64, DeviceLike, as_f64, resolve_device
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.sim import memsys, policies, timeline
 from repro_torch.sim.apps import AppArrays, app_fields, from_numpy, stack_mixes
-from repro_torch.sim.managers import MANAGER_NAMES, policy_loop, to_host
+from repro_torch.sim.managers import (
+    MANAGER_NAMES,
+    _run_cppf,
+    policy_loop,
+    to_host,
+)
 from repro_torch.sim.runner import (
     CMPConfig,
     CMPPlant,
@@ -149,9 +151,7 @@ class RowParams:
 
     def tunables(self) -> dict:
         """The five tunables as ``run_timelines`` keyword arguments."""
-        return {f: getattr(self, f) for f in (
-            "min_ways", "speedup_threshold", "min_bandwidth_allocation",
-            "atd_decay", "bandwidth_delay_decay")}
+        return {f: getattr(self, f) for f in TUNABLES}
 
 
 def _per_row_params(
@@ -198,15 +198,15 @@ def _per_row_params(
     )
 
 
-class BatchedCoordinator:
+class BatchedCoordinator(CBPCoordinator):
     """One Table-3 manager, coordinated across all mixes in lockstep.
 
-    :class:`~repro_torch.core.coordinator.CBPCoordinator` state for state
-    with a leading mix axis: ATD counters (M, n, U+1), a shared
-    :class:`~repro_torch.core.bandwidth_controller.BandwidthController`
-    over (M, n) delays, the prefetch A/B decision elementwise.  All mixes
-    share one Fig. 8 timeline, which is what makes lockstep exact.  Cache
-    allocation is one batched greedy per reconfiguration boundary
+    :class:`~repro_torch.core.coordinator.CBPCoordinator` over the batched
+    plant (its loop is shape-agnostic over the mix axis): ATD counters (M,
+    n, U+1), the delay accumulator over (M, n) delays, the prefetch A/B
+    decision elementwise, per-row tunables from ``params_rows``.  All
+    mixes share one Fig. 8 timeline, which is what makes lockstep exact.
+    Cache allocation is one batched greedy per reconfiguration boundary
     (:class:`~repro_torch.core.cache_controller.CacheController` with the
     plant's allocator backend).
     """
@@ -220,64 +220,20 @@ class BatchedCoordinator:
         prefetch_mode: PrefetchMode = PrefetchMode.DYNAMIC,
         params_rows: Optional[Sequence[CBPParams]] = None,
     ):
-        self.plant = plant
-        self.cache_mode = cache_mode
-        self.bandwidth_mode = bandwidth_mode
-        self.prefetch_mode = prefetch_mode
-
-        m, n = plant.n_mixes, plant.n_clients
-        dev = plant.device
-        self.rows = _per_row_params(params or CBPParams(), params_rows, m)
-        self.params = self.rows.schedule
-        self._ipc_acc = torch.zeros((m, n), dtype=F64, device=dev)
-        self._w_acc = 0.0
-
-        units = np.full(n, plant.total_cache_units // n, dtype=np.int64)
-        units[: plant.total_cache_units - int(units.sum())] += 1
-        self.alloc = Allocation(
-            cache_units=torch.as_tensor(np.tile(units, (m, 1)), device=dev),
-            bandwidth=torch.full((m, n), plant.total_bandwidth / n,
-                                 dtype=F64, device=dev),
-            prefetch_on=torch.full((m, n), prefetch_mode == PrefetchMode.ON,
-                                   dtype=torch.bool, device=dev),
-            cache_mode=cache_mode,
-            bandwidth_mode=bandwidth_mode,
-        )
-
-    # ------------------------------------------------------------------ #
-
-    def _run(self, alloc: Allocation, duration_ms: float) -> IntervalStats:
-        stats = self.plant.run_interval(alloc, duration_ms)
-        self._atd += stats.utility_curves * duration_ms
-        self.bw_ctl.observe(stats.queuing_delay_ns * duration_ms)
-        self._ipc_acc = self._ipc_acc + stats.ipc * duration_ms
-        self._w_acc += duration_ms
-        return stats
-
-    def _reconfigure(self) -> None:
-        if self.cache_mode == Mode.DYNAMIC:
-            self.alloc.cache_units = self.cache_ctl.allocate(
-                self._atd, min_units=self.rows.min_ways)
-        self._atd *= self._atd_decay
-        if self.bandwidth_mode == Mode.DYNAMIC:
-            self.alloc.bandwidth = self.bw_ctl.allocate()
-
-    def _with_prefetch(self, value: bool) -> Allocation:
-        alloc = self.alloc.copy()
-        alloc.prefetch_on = torch.full_like(self.alloc.prefetch_on, value)
-        return alloc
-
-    # ------------------------------------------------------------------ #
+        self.rows = _per_row_params(params or CBPParams(), params_rows,
+                                    plant.n_mixes)
+        super().__init__(plant, self.rows.schedule, cache_mode,
+                         bandwidth_mode, prefetch_mode,
+                         tunables=self.rows.tunables())
 
     def run(self, total_ms: float) -> None:
-        """Execute the Fig. 8 timeline over every batch row: as one
-        stacked timeline of one manager, or, on the "segment" backend, as
-        the host loop of one model evaluation per segment.  Both run the
-        same :func:`~repro_torch.core.types.fig8_schedule` segment list."""
+        """Execute the Fig. 8 timeline over every batch row: on the
+        "segment" backend as the coordinator's host loop of one model
+        evaluation per segment, otherwise as one stacked timeline of one
+        manager.  Both run the same
+        :func:`~repro_torch.core.types.fig8_schedule` segment list."""
         if self.plant.timeline_backend == "segment":
-            self._run_segments(fig8_schedule(
-                total_ms, self.params,
-                self.prefetch_mode == PrefetchMode.DYNAMIC))
+            super().run(total_ms)
         else:
             self._run_fused(total_ms)
         if self.cache_mode == Mode.DYNAMIC:
@@ -300,95 +256,6 @@ class BatchedCoordinator:
         self.alloc.bandwidth = torch.as_tensor(res.bandwidth, device=dev)
         self.alloc.prefetch_on = torch.as_tensor(res.prefetch_on, device=dev)
 
-    def _run_segments(self, schedule) -> None:
-        # The controllers' state exists only on this path: the stacked
-        # timeline keeps its own.
-        plant = self.plant
-        m, n = plant.n_mixes, plant.n_clients
-        dev = plant.device
-        self.cache_ctl = CacheController(
-            plant.total_cache_units, self.params.min_ways,
-            backend=plant.allocator_backend)
-        self._atd = torch.zeros((m, n, plant.total_cache_units + 1),
-                                dtype=F64, device=dev)
-        self._atd_decay = as_f64(self.rows.atd_decay, dev)
-        self.bw_ctl = BandwidthController(
-            plant.total_bandwidth, self.rows.min_bandwidth_allocation,
-            decay=self.rows.bandwidth_delay_decay)
-        stats_off: Optional[IntervalStats] = None
-        for seg in schedule:
-            if seg.kind == "reconfigure":
-                self._reconfigure()
-            elif seg.kind == "sample_off":
-                stats_off = self._run(self._with_prefetch(False),
-                                      seg.duration_ms)
-            elif seg.kind == "sample_on":
-                stats_on = self._run(self._with_prefetch(True),
-                                     seg.duration_ms)
-                self.alloc.prefetch_on = throttle_decision(
-                    stats_on.ipc, stats_off.ipc, self.rows.speedup_threshold)
-            else:
-                self._run(self.alloc, seg.duration_ms)
-
-    def mean_ipc(self) -> torch.Tensor:
-        return self._ipc_acc / max(self._w_acc, 1e-12)
-
-
-def _run_cppf_batched(plant: BatchedCMPPlant, total_ms: float,
-                      params: CBPParams,
-                      params_rows: Optional[Sequence[CBPParams]] = None):
-    """CPpf on the segment backend (``managers._run_cppf`` with a leading
-    mix axis): each friendly-mask allocation is one batched greedy per
-    reallocation, including the one after the final interval."""
-    m, n = plant.n_mixes, plant.n_clients
-    total_units = plant.total_cache_units
-    dev = plant.device
-    rows = _per_row_params(params, params_rows, m)
-    params = rows.schedule
-    equal_units = torch.full((m, n), total_units // n, dtype=torch.int64,
-                             device=dev)
-    bw = torch.full((m, n), plant.total_bandwidth / n, dtype=F64, device=dev)
-
-    def make_alloc(units, pf_on) -> Allocation:
-        return Allocation(
-            cache_units=units, bandwidth=bw.clone(), prefetch_on=pf_on,
-            cache_mode=Mode.DYNAMIC, bandwidth_mode=Mode.UNPARTITIONED)
-
-    cache_ctl = CacheController(
-        total_units, params.min_ways, backend=plant.allocator_backend)
-    off = plant.run_interval(
-        make_alloc(equal_units, torch.zeros((m, n), dtype=torch.bool,
-                                            device=dev)),
-        params.prefetch_sampling_period_ms)
-    on = plant.run_interval(
-        make_alloc(equal_units, torch.ones((m, n), dtype=torch.bool,
-                                           device=dev)),
-        params.prefetch_sampling_period_ms)
-    friendly = throttle_decision(on.ipc, off.ipc, rows.speedup_threshold)
-
-    pf_on = torch.ones((m, n), dtype=torch.bool, device=dev)
-    units = equal_units.clone()
-    atd = torch.zeros((m, n, total_units + 1), dtype=F64, device=dev)
-    atd_decay = as_f64(rows.atd_decay, dev)
-    ipc_acc = torch.zeros((m, n), dtype=F64, device=dev)
-    w_acc = 0.0
-    t = 0.0
-    while t < total_ms - 1e-9:
-        dt = min(params.reconfiguration_interval_ms, total_ms - t)
-        stats = plant.run_interval(make_alloc(units, pf_on), dt)
-        atd += stats.utility_curves * dt
-        ipc_acc = ipc_acc + stats.ipc * dt
-        w_acc += dt
-        t += dt
-        curves = atd.clone()
-        atd *= atd_decay
-        units = cache_ctl.allocate_masked(
-            curves, ~friendly, min_units=rows.min_ways)
-    alloc = to_host(make_alloc(units, pf_on))
-    _check_units_capacity(alloc.cache_units, total_units, "CPpf")
-    _check_bandwidth_capacity(alloc.bandwidth, plant.total_bandwidth, "CPpf")
-    return ipc_acc / w_acc, alloc
-
 
 def _run_one_manager(
     plant: BatchedCMPPlant,
@@ -398,36 +265,40 @@ def _run_one_manager(
     params_rows: Optional[Sequence[CBPParams]] = None,
 ) -> Tuple[np.ndarray, Allocation]:
     """One manager over every batch row of ``plant`` on the segment
-    backend -> ((M, n) mean ipc, host allocation)."""
+    backend -> ((M, n) mean ipc, host allocation).  The scalar loops are
+    shape-agnostic, with the per-row tunables threaded through."""
     family = policies.get_family(name)
+    if family.modes is not None:
+        cache_mode, bw_mode, pf_mode = family.modes
+        coord = BatchedCoordinator(
+            plant, params=params, cache_mode=cache_mode,
+            bandwidth_mode=bw_mode, prefetch_mode=pf_mode,
+            params_rows=params_rows)
+        coord.run(total_ms)
+        return coord.mean_ipc(), to_host(coord.alloc)
+    rows = _per_row_params(params, params_rows, plant.n_mixes)
     if family.variant == "cppf":
-        ipc, alloc = _run_cppf_batched(plant, total_ms, params, params_rows)
-        return ipc.cpu().numpy(), alloc
-    if family.modes is None:
-        # Registry policy / banked families: the scalar loop is
-        # shape-agnostic, with the per-row tunables threaded through.
-        rows = _per_row_params(params, params_rows, plant.n_mixes)
+        ipc, alloc = _run_cppf(
+            plant, total_ms, rows.schedule, min_ways=rows.min_ways,
+            atd_decay=rows.atd_decay,
+            speedup_threshold=rows.speedup_threshold)
+    else:
         ipc, alloc = policy_loop(
             plant, family, total_ms, rows.schedule,
             min_ways=rows.min_ways,
             min_bandwidth=rows.min_bandwidth_allocation,
             atd_decay=rows.atd_decay,
             bandwidth_delay_decay=rows.bandwidth_delay_decay)
-        alloc = to_host(alloc)
-        where = f"run_sweep[{name}]"
-        if _family_modes(family)[0] == Mode.DYNAMIC:
-            _check_units_capacity(
-                alloc.cache_units, plant.total_cache_units, where)
-        _check_bandwidth_capacity(
-            alloc.bandwidth, plant.total_bandwidth, where)
-        return ipc.cpu().numpy(), alloc
-    cache_mode, bw_mode, pf_mode = family.modes
-    coord = BatchedCoordinator(
-        plant, params=params, cache_mode=cache_mode,
-        bandwidth_mode=bw_mode, prefetch_mode=pf_mode,
-        params_rows=params_rows)
-    coord.run(total_ms)
-    return coord.mean_ipc().cpu().numpy(), to_host(coord.alloc)
+    alloc = to_host(alloc)
+    where = f"run_sweep[{name}]"
+    cache_mode, bw_mode, _pf = _family_modes(family)
+    if cache_mode == Mode.DYNAMIC:
+        _check_units_capacity(alloc.cache_units, plant.total_cache_units,
+                              where)
+    if bw_mode == Mode.DYNAMIC or family.variant == "cppf":
+        _check_bandwidth_capacity(alloc.bandwidth, plant.total_bandwidth,
+                                  where)
+    return ipc.cpu().numpy(), alloc
 
 
 def _family_modes(family: policies.PolicyFamily
@@ -513,7 +384,6 @@ def _timelines(plant: BatchedCMPPlant, specs, rows: RowParams):
         total_units=plant.total_cache_units,
         total_bandwidth=plant.total_bandwidth,
         llc_extra_cycles=plant.config.llc_extra_cycles,
-        length_buckets=plant.config.length_buckets,
         **rows.tunables())
 
 

@@ -21,12 +21,12 @@ allocators.
 Stacking is exact: rows never interact, the model runs on flat ``(K*M,
 n)`` rows, and ``NOOP`` slots are bitwise no-ops for a manager's state,
 so each manager's rows equal its standalone (``K = 1``) run bit for bit
-(``tests/test_torch_sweep.py``).  By default the managers are stacked in
-buckets of equal table length (:func:`_length_buckets`, the JAX program's
-frozen-row skipping): each bucket over its own slot count, the buckets
-sharing one slot loop, in which a slot evaluates only the buckets still
-running.  By the same argument the buckets equal the single table bit
-for bit.
+(``tests/test_torch_sweep.py``).  The managers are stacked in buckets of
+equal table length (:func:`_length_buckets`, the JAX program's frozen-row
+skipping): each bucket over its own slot count, the buckets sharing one
+slot loop, in which a slot evaluates only the buckets still running.  By
+the same argument the buckets equal a single stacked table bit for bit
+(``tests/test_torch_segment.py`` forces one bucket to compare).
 Single device only; sharding and the asynchronous dispatch of the JAX
 program are not ported yet.
 """
@@ -87,7 +87,7 @@ def segment_table(
 
 
 def cppf_schedule(total_ms: float, params) -> List[ScheduleSegment]:
-    """CPpf's timeline as data (mirrors ``sweep._run_cppf_batched``).
+    """CPpf's timeline as data (mirrors ``managers._run_cppf``).
 
     An A/B friendliness probe at equal partitioning (excluded from the
     time-weighted mean), then per reconfiguration interval: run, then
@@ -269,7 +269,6 @@ def run_timelines(
     atd_decay=0.5,
     bandwidth_delay_decay=0.5,
     iters: int = FIXED_POINT_ITERS,
-    length_buckets: bool = True,
 ) -> List[TimelineResult]:
     """Run a whole manager set's timelines on the parameters' device.
 
@@ -280,14 +279,13 @@ def run_timelines(
       min_ways / speedup_threshold / min_bandwidth_allocation / atd_decay /
         bandwidth_delay_decay: scalars or per-mix arrays (trailing
         singleton axes allowed), shared by every manager.
-      length_buckets: stack the managers in buckets of equal table length
-        (:func:`_length_buckets`), each over its own slot count, so a
-        short-table manager (a fully static one has one slot) is not
-        evaluated on every slot of the longest table.  The buckets share
-        the slot loop: a slot evaluates the rows of the buckets still
-        running, and the greedy launches once per slot on every bucket's
-        reallocating rows.  ``False`` stacks every manager into one table.
-        Results are bit-identical either way.
+
+    The managers run in buckets of equal table length
+    (:func:`_length_buckets`), each over its own slot count, so a
+    short-table manager (a fully static one has one slot) is not evaluated
+    on every slot of the longest table.  The buckets share the slot loop:
+    a slot evaluates the rows of the buckets still running, and the greedy
+    launches once per slot on every bucket's reallocating rows.
 
     Returns:
       One :class:`TimelineResult` of host arrays per spec; the results
@@ -310,8 +308,7 @@ def run_timelines(
     tables = [segment_table(s.schedule) for s in specs]
     accum = [RUN if s.variant == "cppf" else None for s in specs]
     K = len(specs)
-    buckets = (_length_buckets([len(t[0]) for t in tables])
-               if length_buckets else [list(range(K))])
+    buckets = _length_buckets([len(t[0]) for t in tables])
     # Each bucket stacks its own tables; the buckets' rows follow each
     # other in ascending table length, padded with NOOP slots to the
     # longest.  A bucket's rows past its own slot count are frozen, so the

@@ -25,6 +25,7 @@ from repro_torch.sim import (
     run_sweep,
 )
 from repro_torch.sim import characterization as ch
+from repro_torch.sim import timeline
 
 pytestmark = pytest.mark.cuda
 
@@ -82,11 +83,12 @@ def test_segment_equals_stacked_on_the_card(card):
     assert_same(seg, stacked, MANAGER_NAMES)
 
 
-def test_length_buckets_bit_identical_on_the_card(card):
+def test_length_buckets_bit_identical_on_the_card(card, monkeypatch):
     mixes = random_mixes(5, 16, seed=3)
     a = run_sweep(mixes, total_ms=30.0)
-    b = run_sweep(mixes, total_ms=30.0,
-                  config=CMPConfig(length_buckets=False))
+    monkeypatch.setattr(timeline, "_length_buckets",
+                        lambda lens: [list(range(len(lens)))])
+    b = run_sweep(mixes, total_ms=30.0)
     assert_same(a, b, MANAGER_NAMES, rtol=0)
 
 

@@ -127,6 +127,26 @@ def test_plant_allocator_backend_resolves():
         CMPPlant(FIG1, CMPConfig(allocator_backend="jax"), device="cpu")
 
 
+class PlantWithoutAllocator:
+    """A plant that names no allocator backend."""
+
+    def __init__(self, apps):
+        plant = CMPPlant(apps, device="cpu")
+        self.n_clients = plant.n_clients
+        self.total_cache_units = plant.total_cache_units
+        self.total_bandwidth = plant.total_bandwidth
+        self.device = plant.device
+        self.run_interval = plant.run_interval
+
+
+@pytest.mark.parametrize("manager", ["CBP", "CPpf"])
+def test_plant_without_allocator_backend_raises(manager):
+    """The coordinator and CPpf read the plant's allocator backend; a
+    plant without one is refused rather than run on the host golden."""
+    with pytest.raises(AttributeError, match="allocator_backend"):
+        run_manager(manager, PlantWithoutAllocator(FIG1), total_ms=10.0)
+
+
 def test_numpy_allocator_scalar_path_equals_device_path():
     """The host golden and the device greedy take the same decisions."""
     numpy_cfg = CMPConfig(allocator_backend="numpy")

@@ -25,6 +25,7 @@ from repro_torch.sim import (
     random_mixes,
     run_sweep,
 )
+from repro_torch.sim import timeline
 from repro_torch.sim.sweep import _manager_spec
 from repro_torch.sim.timeline import (
     RUN,
@@ -178,12 +179,19 @@ def test_table3_buckets_and_greedy_boundaries():
     assert len(greedy_slots(range(len(specs)))) == 10
 
 
+def one_table(monkeypatch):
+    """Stack every manager into one table: the reference the buckets are
+    held to."""
+    monkeypatch.setattr(timeline, "_length_buckets",
+                        lambda lens: [list(range(len(lens)))])
+
+
 @pytest.mark.parametrize("total_ms", [20.0, 37.5])
-def test_buckets_bit_identical_to_one_table(total_ms):
+def test_buckets_bit_identical_to_one_table(total_ms, monkeypatch):
     mixes = random_mixes(3, 16, seed=4)
     a = run_sweep(mixes, total_ms=total_ms, device="cpu")
-    b = run_sweep(mixes, total_ms=total_ms, device="cpu",
-                  config=CMPConfig(length_buckets=False))
+    one_table(monkeypatch)
+    b = run_sweep(mixes, total_ms=total_ms, device="cpu")
     for name in MANAGER_NAMES:
         np.testing.assert_array_equal(a.ipc[name], b.ipc[name],
                                       err_msg=name)
@@ -193,7 +201,7 @@ def test_buckets_bit_identical_to_one_table(total_ms):
                                           err_msg=f"{name} {f}")
 
 
-def test_run_timelines_buckets_with_per_mix_tunables():
+def test_run_timelines_buckets_with_per_mix_tunables(monkeypatch):
     """Per-mix tunables given with trailing singleton axes (the segment
     path's (M, 1) and (M, 1, 1)) run the same in buckets and in one
     table."""
@@ -207,7 +215,8 @@ def test_run_timelines_buckets_with_per_mix_tunables():
               atd_decay=np.array([[[0.3]], [[0.8]]]),
               bandwidth_delay_decay=np.array([[0.6], [0.1]]))
     a = run_timelines(plant.params, specs, **kw)
-    b = run_timelines(plant.params, specs, length_buckets=False, **kw)
+    one_table(monkeypatch)
+    b = run_timelines(plant.params, specs, **kw)
     for ra, rb in zip(a, b):
         np.testing.assert_array_equal(ra.ipc_acc, rb.ipc_acc)
         np.testing.assert_array_equal(ra.cache_units, rb.cache_units)
@@ -240,7 +249,7 @@ def test_batched_coordinator_fused_equals_segment(pf_mode):
                                   b.alloc.cache_units.numpy())
     np.testing.assert_array_equal(a.alloc.prefetch_on.numpy(),
                                   b.alloc.prefetch_on.numpy())
-    np.testing.assert_allclose(a.mean_ipc().numpy(), b.mean_ipc().numpy(),
+    np.testing.assert_allclose(a.mean_ipc(), b.mean_ipc(),
                                rtol=1e-9, atol=0)
     np.testing.assert_allclose(a.alloc.bandwidth.numpy(),
                                b.alloc.bandwidth.numpy(), rtol=1e-12)
