@@ -17,7 +17,8 @@ It drives the port's main path, the paper's Table-3 sweep
              call (captured from the path, which stops there): the
              4096-mix sweep in buckets and as one table, the segment
              backend, each Fig. 12 grid (U=512 among them) and the scalar
-             plant on w1 and on the Fig. 1 pair (B=1, n=2, U=64):
+             plant on w1 and on the Fig. 1 pair (B=1, n=2, U=64) and the
+             training plant's first boundary (B=1, n=12, U=96):
              ``alloc`` and ``balance`` must be exactly equal.  Prints the
              kernel's and the plain version's times and the kernel's bound.
 3. sweep   — all 14 managers over ``random_mixes(32, 16, seed=1)``, 100 ms:
@@ -57,6 +58,18 @@ before it and read just after:
 10. characterization — Figs. 2-4 on the card: the Fig. 2 class counts,
              the named values within rtol 1e-9 of the reference's, the
              whole table within rtol 1e-9 of the port's CPU run.
+11. plant  — the training-loop binding, for every case of the committed
+             ``tests/data/plant_golden.json`` (``tools/plant_golden.py``:
+             the cases of ``tests/test_plant_jax.py``, both
+             ``runtime_bench`` shapes and its full shape at 4,000 ms): the
+             fused Fig. 8 knob schedule
+             (``repro_torch.runtime.plant.run_fused_schedule``) bit for
+             bit against the reference's golden and the port's CPU run,
+             each warm run exactly one CUDA-graph replay with the greedy
+             launches it captured; ``host_reference_run`` on the card,
+             discrete fields exact and floats within rtol 1e-12; walls of
+             the eager warm-up, the capture, the warm replays (median of
+             10) and the host golden.
 
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
@@ -67,7 +80,10 @@ under the planned knobs:
              ``results/bench/kernel_blocks.json`` record (its knobs must
              equal the record's) and for full-width specs at a budget of
              the card's shared memory per block; every plan must equal the
-             port's CPU run, with one greedy launch per capacity group.
+             port's CPU run, with one greedy launch per capacity group;
+             and ``benchmarks/runtime_bench.py``'s five planner shapes in
+             one greedy launch, equal to the scalar numpy planner and to
+             the committed ``results/bench/runtime_bench.json``.
 6. kernels — the path itself, driven once at full width (qwen3-8b FFN
              matmul, prefill attention and decode; mamba2-1.3b SSD scan)
              with the launch counts reset just before it; then each of
@@ -223,6 +239,25 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:72",
 }
 
+#: ``benchmarks/runtime_bench.py``'s planner shapes (``PLAN_SHAPES``, bf16
+#: at the reference's default budget), planned in one batched call.
+RUNTIME_PLAN_SHAPES = ((512, 512, 512), (1024, 1024, 1024), (384, 768, 96),
+                       (97, 53, 160), (6, 4, 512))
+RUNTIME_RECORD = ROOT / "results" / "bench" / "runtime_bench.json"
+
+#: The reference's training-plant trajectories (``tools/plant_golden.py``:
+#: ``repro.runtime.plant_jax.host_reference_run``), floats as float.hex.
+PLANT_GOLDEN = ROOT / "tests" / "data" / "plant_golden.json"
+PLANT_FIELDS = ("kinds", "t_ms", "duration_ms", "cache_units", "bandwidth",
+                "prefetch_on", "ipc", "queuing_delay_ns")
+PLANT_FLOATS = ("t_ms", "duration_ms", "bandwidth", "ipc",
+                "queuing_delay_ns")
+#: The port's host golden (``host_reference_run``) sums Algorithm 1's
+#: delays with ``torch.sum``, not in numpy's order: its floats are held to
+#: the controllers' float64 tolerance of the reference's.
+PLANT_HOST_RTOL = 1e-12
+PLANT_WARM_RUNS = 10
+
 N_APPS, TOTAL_UNITS, MIN_WAYS = 16, 256, 4
 SMALL_MIXES, SCALE_MIXES, TOTAL_MS, SEED = 32, 4096, 100.0, 1
 RTOL = 1e-9
@@ -335,7 +370,7 @@ def path_captures():
     table (all five Lookahead managers in one launch, B = 20,480), the
     segment backend, each Fig. 12 grid (the 512-unit one included) and
     the scalar plant on w1 and on the Fig. 1 pair (64 units; CPpf's
-    masked call too)."""
+    masked call too) and the training plant (B = 1, n = 12, U = 96)."""
     from repro_torch.core.types import CBPParams
     from repro_torch.sim import (WORKLOADS, CMPConfig, random_mixes,
                                  run_all_managers, run_sweep)
@@ -367,8 +402,23 @@ def path_captures():
         "managers_fig1_cppf": lambda: run_all_managers(
             ["lbm", "xalancbmk"], total_ms=TOTAL_MS, names=["CPpf"],
             config=fig1),
+        "training_plant": training_plant_run,
     })
     return cases
+
+
+def training_plant_run():
+    """The training plant's fused schedule at ``runtime_bench``'s full
+    shape, on a new model (a new graph key): its warm-up reaches the greedy
+    at the first boundary with B = 1, n = 12, U = 96."""
+    from repro_torch.runtime.plant import run_fused_schedule
+    from repro_torch.train.plant_model import make_stream_plant_model
+
+    args, _ = load_plant_golden()["full"]
+    _step_fn, step_model = make_stream_plant_model(
+        args["n_clients"], args["total_units"], args["total_bandwidth"],
+        seed=args["seed"], device="cuda")
+    run_fused_schedule(step_model, **plant_kwargs(args))
 
 
 def greedy_bound(args, U: int):
@@ -899,6 +949,154 @@ def characterization_phase(card: str):
 
 
 # --------------------------------------------------------------------- #
+# phase 11: the training-loop binding (fused Fig. 8 knob schedule)
+# --------------------------------------------------------------------- #
+
+def load_plant_golden() -> dict:
+    """{case: (arguments, {field: array})} of the committed golden."""
+    import numpy as np
+
+    dtypes = {"kinds": np.int32, "cache_units": np.int64,
+              "prefetch_on": bool}
+    data = json.loads(PLANT_GOLDEN.read_text())
+    out = {}
+    for name, case in data["cases"].items():
+        fields = {}
+        for f in PLANT_FIELDS:
+            v = case["golden"][f]
+            if f in PLANT_FLOATS:
+                v = np.vectorize(float.fromhex, otypes=[np.float64])(
+                    np.asarray(v, dtype=object))
+            fields[f] = np.asarray(v, dtype=dtypes.get(f, np.float64))
+        out[name] = (case["args"], fields)
+    return out
+
+
+def plant_kwargs(args: dict) -> dict:
+    """``run_fused_schedule`` / ``host_reference_run`` keyword arguments
+    of one golden case (the model aside)."""
+    from repro_torch.core.types import CBPParams, Mode, PrefetchMode
+
+    return dict(
+        n_clients=args["n_clients"], total_units=args["total_units"],
+        total_bandwidth=args["total_bandwidth"], total_ms=args["total_ms"],
+        params=CBPParams(**args["params"]),
+        cache_mode=Mode(args.get("cache_mode", "dynamic")),
+        bandwidth_mode=Mode(args.get("bandwidth_mode", "dynamic")),
+        prefetch_mode=PrefetchMode(args.get("prefetch_mode", "dynamic")))
+
+
+def plant_diff(got, want: dict, exact: bool, what: str) -> float:
+    """Discrete fields equal (dtype too); floats bit for bit, or within
+    PLANT_HOST_RTOL.  Returns the largest relative float difference."""
+    import numpy as np
+
+    worst = 0.0
+    for f in PLANT_FIELDS:
+        g, w = getattr(got, f), want[f]
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: {f} is {g.dtype} {g.shape}, want {w.dtype} "
+              f"{w.shape}")
+        if f in PLANT_FLOATS:
+            check(bool(np.isfinite(g).all()), f"{what}: {f} not finite")
+            nz = w != 0
+            rel = (float(np.max(np.abs(g[nz] - w[nz]) / np.abs(w[nz])))
+                   if nz.any() else 0.0)
+            worst = max(worst, rel)
+            ok = (np.array_equal(g, w) if exact else
+                  np.allclose(g, w, rtol=PLANT_HOST_RTOL, atol=0.0))
+        else:
+            ok = np.array_equal(g, w)
+        check(ok, f"{what}: {f} differs"
+                  + ("" if f not in PLANT_FLOATS else f" (max rel {rel})"))
+    return worst
+
+
+def plant_phase(card: str) -> int:
+    """Every case of the committed golden on the card, each driven with
+    the launch counts reset just before it: the fused schedule (warm-up,
+    capture and first replay, then PLANT_WARM_RUNS warm replays) bit for
+    bit against the reference's golden and the port's CPU run, one graph
+    replay and only the captured greedy launches per warm run; the host
+    golden (``host_reference_run``) on the card, discrete fields exact and
+    floats within PLANT_HOST_RTOL.  Returns the greedy launches of one
+    warm run of every case."""
+    import statistics
+
+    import torch
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.runtime.plant import (host_reference_run,
+                                           run_fused_schedule,
+                                           schedule_program)
+    from repro_torch.train.plant_model import make_stream_plant_model
+
+    launches_plant = 0
+    for name, (args, want) in load_plant_golden().items():
+        kw = plant_kwargs(args)
+
+        def model(device):
+            return make_stream_plant_model(
+                args["n_clients"], args["total_units"],
+                args["total_bandwidth"], seed=args["seed"], device=device)
+
+        step_fn, step_model = model("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = run_fused_schedule(step_model, **kw)
+        first_s = time.perf_counter() - t0
+        plant_diff(first, want, True, f"plant {name}: first run vs golden")
+        prog, _kinds, _durs = schedule_program(step_model, **kw)
+        graph = prog.graph
+        check(graph is not None and graph.captured,
+              f"plant {name}: no captured graph on the card")
+        walls, counts = [], None
+        for _ in range(PLANT_WARM_RUNS):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_fused_schedule(step_model, **kw)
+            walls.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            want_counts = {k: 0 for k in counts}
+            want_counts.update(graph.launches, schedule_graph=1)
+            check(counts == want_counts,
+                  f"plant {name}: a warm run counted {counts}, not one "
+                  f"replay with its captured launches {graph.launches}")
+            plant_diff(res, want, True, f"plant {name}: warm run vs golden")
+        launches_plant += counts["lookahead_greedy"]
+        t0 = time.perf_counter()
+        cpu = run_fused_schedule(model("cpu")[1], **kw, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        plant_diff(res, {f: getattr(cpu, f) for f in PLANT_FIELDS}, True,
+                   f"plant {name}: card vs the port's CPU run")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        host = host_reference_run(step_fn, **kw)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        host_launches = launch_counts()["lookahead_greedy"]
+        check(host_launches == graph.launches.get("lookahead_greedy", 0),
+              f"plant {name}: host golden launched the greedy "
+              f"{host_launches} times, the graph {graph.launches}")
+        host_rel = plant_diff(host, want, False,
+                              f"plant {name}: host_reference_run vs golden")
+        emit(card, phase="plant", case=name, args=args,
+             segments=len(want["kinds"]),
+             bit_identical_to_golden=True, equals_cpu_run=True,
+             replays_per_warm_run=counts["schedule_graph"],
+             greedy_launches_per_run=counts["lookahead_greedy"],
+             warmup_eager_s=graph.seconds["warmup"],
+             capture_s=graph.seconds["capture"], first_run_s=first_s,
+             warm_replay_median_s=statistics.median(walls),
+             warm_replay_min_s=min(walls), warm_replay_max_s=max(walls),
+             warm_runs=len(walls), host_reference_run_s=host_s,
+             host_greedy_launches=host_launches, cpu_port_run_s=cpu_s,
+             host_max_rel_diff=host_rel, host_rtol=PLANT_HOST_RTOL)
+    return launches_plant
+
+
+# --------------------------------------------------------------------- #
 # phases 5-6: the kernel-level path (UCP block planner + four kernels)
 # --------------------------------------------------------------------- #
 
@@ -949,10 +1147,42 @@ def plan_phase(card: str):
     check(plans["record"] == EXPECTED_RECORD_KNOBS,
           f"record plan {plans['record']} != kernel_blocks.json "
           f"{EXPECTED_RECORD_KNOBS}")
+    runtime_blocks = runtime_plan(launches)
     emit(card, phase="plan", budget_bytes=budget,
          record_knobs=plans["record"], full_knobs=plans["full"],
-         greedy_launches=launches)
+         runtime_bench_blocks=runtime_blocks, greedy_launches=launches)
     return plans["record"], plans["full"], budget
+
+
+def runtime_plan(launches: dict):
+    """``runtime_bench``'s planner half: its PLAN_SHAPES planned on the
+    card in one greedy launch, equal to the scalar numpy planner (the
+    port's host golden greedy per shape) and to the committed record's
+    ``planner_blocks``."""
+    from repro_torch.core import cache_controller_numpy as ccn
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.runtime import cbp_runtime as rt
+
+    reset_launch_counts()
+    blocks = [list(b) for b in
+              rt.plan_matmul_blocks_batched(list(RUNTIME_PLAN_SHAPES))]
+    launches["runtime_bench"] = launch_counts()["lookahead_greedy"]
+    check(launches["runtime_bench"] == 1,
+          f"runtime_bench's shapes took {launches['runtime_bench']} greedy "
+          f"launches, not one")
+    units = rt._total_units(rt.DEFAULT_BUDGET_BYTES)
+    scalar = []
+    for m, n, k in RUNTIME_PLAN_SHAPES:
+        curves = rt._tile_utility_curves(m, n, k, 2, rt._PLAN_UNIT, units)
+        alloc = ccn.lookahead_allocate(curves, units, rt._PLAN_MIN_UNITS)
+        scalar.append(list(rt._plan_from_alloc(m, n, k, alloc, 2)))
+    record = json.loads(RUNTIME_RECORD.read_text())["derived"][
+        "planner_blocks"]
+    check(blocks == scalar, f"runtime_bench plan {blocks} != the scalar "
+                            f"numpy planner's {scalar}")
+    check(blocks == record, f"runtime_bench plan {blocks} != the record's "
+                            f"{record}")
+    return blocks
 
 
 def ssd_inputs(gen, b, s, h, p, n, dtype, device):
@@ -1375,6 +1605,7 @@ def main() -> int:
         launches_grid = grid_phase(card)
         launches_managers = managers_phase(card)
         characterization_phase(card)
+        launches_plant = plant_phase(card)
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -1402,6 +1633,7 @@ def main() -> int:
             "launches_segment": launches_segment,
             "launches_grid": launches_grid,
             "launches_managers": launches_managers,
+            "launches_plant": launches_plant,
         }, *path_rows]
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -60,6 +60,7 @@
 #include <algorithm>
 #include <climits>
 #include <math_constants.h>
+#include <mutex>
 
 namespace {
 
@@ -234,12 +235,10 @@ __global__ void lookahead_greedy_kernel(const double* __restrict__ curves,
 // Rows per block (warps) that keep the most rows resident per SM, ties to
 // fewer, for rows of `bytes` shared memory; and how many such blocks the
 // card holds at once.
-int configure(size_t bytes, int& rows, int& blocks) {
-  int dev, optin, sms;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+int compute_config(int dev, size_t bytes, int& rows, int& blocks) {
+  int optin, sms;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
@@ -260,6 +259,38 @@ int configure(size_t bytes, int& rows, int& blocks) {
     }
   }
   return blocks > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+// compute_config, remembered per (device, row bytes).  A launch whose
+// configuration is remembered makes no runtime call but cudaGetDevice and
+// the launch itself, so a CUDA graph capture after a warm-up call records
+// the kernel and nothing else.
+struct Config {
+  int dev;
+  size_t bytes;
+  int rows, blocks;
+};
+constexpr int kMaxConfigs = 64;
+Config g_configs[kMaxConfigs];
+int g_n_configs = 0;
+std::mutex g_configs_mutex;
+
+int configure(size_t bytes, int& rows, int& blocks) {
+  int dev;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(g_configs_mutex);
+  for (int i = 0; i < g_n_configs; ++i) {
+    if (g_configs[i].dev == dev && g_configs[i].bytes == bytes) {
+      rows = g_configs[i].rows;
+      blocks = g_configs[i].blocks;
+      return 0;
+    }
+  }
+  const int err = compute_config(dev, bytes, rows, blocks);
+  if (err == 0 && g_n_configs < kMaxConfigs)
+    g_configs[g_n_configs++] = {dev, bytes, rows, blocks};
+  return err;
 }
 
 }  // namespace

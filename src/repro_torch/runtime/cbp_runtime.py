@@ -1,6 +1,7 @@
-"""CBP's kernel-level binding: UCP Lookahead partitioning of an on-chip
-memory budget among a kernel's tiles (counterpart of the planner half of
-:mod:`repro.runtime.cbp_runtime`).
+"""CBP's runtime bindings (counterpart of :mod:`repro.runtime.cbp_runtime`):
+the kernel-level binding, UCP Lookahead partitioning of an on-chip memory
+budget among a kernel's tiles, and the training-loop binding's plant
+(:class:`TrainingPlant`).
 
 :func:`plan_matmul_blocks` runs the Lookahead allocator over
 *tile-utility curves* (the device-memory traffic avoided as a function of
@@ -17,15 +18,18 @@ reference planner's default, so that plans equal the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.cache_controller import (
     lookahead_allocate,
     lookahead_allocate_grouped,
 )
-from repro_torch.device import DeviceLike
+from repro_torch.core.types import Allocation, IntervalStats
+from repro_torch.device import DeviceLike, as_f64, resolve_device
 
 #: The reference planner's default budget (16 MiB).
 DEFAULT_BUDGET_BYTES = 16 * 1024 * 1024
@@ -198,3 +202,59 @@ def plan_kernel_blocks(specs: List[Dict], *,
         shapes, dtype_bytes=dbs, budget_bytes=budgets, device=device)
     return [_KERNEL_PLAN_KNOBS[spec["kernel"]](*blk)
             for spec, blk in zip(specs, blocks)]
+
+
+# ------------------------------------------------------------------ #
+# Training-loop binding
+# ------------------------------------------------------------------ #
+
+
+@dataclasses.dataclass
+class StreamKnobs:
+    """What the plant applies to each client before an interval: ``(n,)``
+    tensors on the plant's device."""
+
+    buffer_units: torch.Tensor      # cache partition (staging pages)
+    bandwidth_mbps: torch.Tensor    # host-side bandwidth shares
+    prefetch_on: torch.Tensor
+
+
+class TrainingPlant:
+    """Adapts a training loop's ``step_fn`` to the CBP
+    :class:`~repro_torch.core.coordinator.Plant` protocol.
+
+    ``step_fn(interval_ms, knobs)`` runs the training loop for the
+    interval under the given :class:`StreamKnobs` and returns per-client
+    (throughput, queue_wait_ms, buffer_utility_curves).  The coordinator's
+    state lives on ``device`` (``None``: the card); ``allocator_backend``
+    is ``"device"`` (the Lookahead greedy kernel on the card, its plain
+    version on the CPU) or ``"numpy"`` (the host golden).
+    """
+
+    def __init__(self, n_clients: int, total_buffer_units: int,
+                 total_bandwidth_mbps: float,
+                 step_fn: Callable[[float, StreamKnobs],
+                                   Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]],
+                 allocator_backend: str = "device",
+                 device: DeviceLike = None):
+        self.n_clients = n_clients
+        self.total_cache_units = total_buffer_units
+        self.total_bandwidth = total_bandwidth_mbps
+        self.allocator_backend = allocator_backend
+        self.device = resolve_device(device)
+        self._step_fn = step_fn
+
+    def run_interval(self, alloc: Allocation,
+                     duration_ms: float) -> IntervalStats:
+        knobs = StreamKnobs(
+            buffer_units=alloc.cache_units,
+            bandwidth_mbps=alloc.bandwidth,
+            prefetch_on=alloc.prefetch_on,
+        )
+        throughput, wait_ms, curves = self._step_fn(duration_ms, knobs)
+        return IntervalStats(
+            ipc=as_f64(throughput, self.device),
+            queuing_delay_ns=as_f64(wait_ms, self.device) * 1e6,
+            utility_curves=as_f64(curves, self.device),
+        )

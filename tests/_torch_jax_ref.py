@@ -475,9 +475,36 @@ def _case_planner(out: dict) -> None:
         out[f"spec{i}_knobs"] = np.array(list(kn.values()))
 
 
+def _case_plant(out: dict) -> None:
+    """The fused Fig. 8 knob schedule of the training plant
+    (``repro.runtime.plant_jax.run_fused_schedule``) for every case of
+    ``tests/data/plant_golden.json`` but the long ones."""
+    from _plant_golden import FIELDS, LONG_CASES, load
+    from repro.core.types import CBPParams, Mode, PrefetchMode
+    from repro.runtime.plant_jax import run_fused_schedule
+    from repro.train.plant_model import make_stream_plant_model
+
+    for name, (args, _golden) in load().items():
+        if name in LONG_CASES:
+            continue
+        _step_fn, step_model = make_stream_plant_model(
+            args["n_clients"], args["total_units"], args["total_bandwidth"],
+            seed=args["seed"])
+        res = run_fused_schedule(
+            step_model, n_clients=args["n_clients"],
+            total_units=args["total_units"],
+            total_bandwidth=args["total_bandwidth"],
+            total_ms=args["total_ms"], params=CBPParams(**args["params"]),
+            cache_mode=Mode(args.get("cache_mode", "dynamic")),
+            bandwidth_mode=Mode(args.get("bandwidth_mode", "dynamic")),
+            prefetch_mode=PrefetchMode(args.get("prefetch_mode", "dynamic")))
+        for f in FIELDS:
+            out[f"{name}|{f}"] = getattr(res, f)
+
+
 CASES = {"lookahead": _case_lookahead, "memsys": _case_memsys,
          "controllers": _case_controllers, "sweep": _case_sweep,
-         "planner": _case_planner, "grid": _case_grid}
+         "planner": _case_planner, "grid": _case_grid, "plant": _case_plant}
 
 
 if __name__ == "__main__":

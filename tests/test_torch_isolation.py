@@ -45,11 +45,21 @@ assert not torch.cuda.is_available()
 from repro_torch.core.cache_controller import lookahead_allocate
 from repro_torch.sim import random_mixes, run_all_managers, run_sweep
 from repro_torch.sim.characterization import sensitivity_table
+from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
+                                 run_fused_schedule)
+from repro_torch.train import make_stream_plant_model
 import numpy as np
+step_fn, step_model = make_stream_plant_model(4, 48, 64.0, device="cpu")
 for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: lookahead_allocate(np.zeros((16, 257)), 256),
              lambda: run_all_managers(["lbm", "mcf"], total_ms=1.0),
-             sensitivity_table):
+             sensitivity_table,
+             lambda: make_stream_plant_model(4, 48, 64.0),
+             lambda: run_fused_schedule(step_model, n_clients=4,
+                                        total_units=48, total_bandwidth=64.0,
+                                        total_ms=10.0),
+             lambda: FusedTrainingPlant(4, 48, 64.0, step_model),
+             lambda: TrainingPlant(4, 48, 64.0, step_fn)):
     try:
         call()
     except RuntimeError as exc:
