@@ -70,6 +70,29 @@ before it and read just after:
              discrete fields exact and floats within rtol 1e-12; walls of
              the eager warm-up, the capture, the warm replays (median of
              10) and the host golden.
+12. static — Fig. 5's static search
+             (``repro_torch.sim.static_search.search_static``) against the
+             reference's numpy golden, the committed
+             ``tests/data/static_search_golden.json``
+             (``tools/static_search_golden.py``): ``fig5_smoke``'s
+             configuration (16 workloads x 4 apps, seed 7, the six Fig. 5
+             families, k = 3; cold and warm walls, peak memory,
+             ``geo_all3`` rounding to the record's 1.269), the same
+             workloads over the registry's 14 families (the banked ``bank
+             bw`` among them), ``fig5_potential``'s 640-workload study
+             (k = 1; warm wall, peak memory, chunks per family, geomeans,
+             the fraction at 1.10 and all-three over the best pair beside
+             the golden's) and the reference's Pareto case (3 x 2, k = 6).
+             Every top-k index equals the golden's or names its twin (the
+             same allocation of the same applications under a permutation
+             of equal-named positions, from names and grid rows: they tie
+             in exact arithmetic, in the banked regime too), twin picks
+             counted per family; on the smoke workloads each family's
+             top-k equals the stable descending argsort of the card's own
+             scores of the whole grid, bit for bit; weighted speedups
+             within rtol 1e-5 of the golden, the Pareto case's indices
+             equal and its floats within 1e-12; the greedy launches
+             nothing.
 
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
@@ -257,6 +280,16 @@ PLANT_FLOATS = ("t_ms", "duration_ms", "bandwidth", "ipc",
 #: the controllers' float64 tolerance of the reference's.
 PLANT_HOST_RTOL = 1e-12
 PLANT_WARM_RUNS = 10
+
+#: Phase 12: the reference's numpy golden of the static search, the
+#: reference's tolerances for its device backend against it (top-k
+#: weighted speedups, tests/test_static_search.py:64; the Pareto case's
+#: weighted speedups and fairness, l.383-389), and the committed
+#: results/bench/fig5_smoke.json record's geo_all3.
+STATIC_GOLDEN = ROOT / "tests" / "data" / "static_search_golden.json"
+STATIC_WS_RTOL = 1e-5
+STATIC_PARETO_RTOL = 1e-12
+FIG5_GEO_ALL3 = 1.269
 
 N_APPS, TOTAL_UNITS, MIN_WAYS = 16, 256, 4
 SMALL_MIXES, SCALE_MIXES, TOTAL_MS, SEED = 32, 4096, 100.0, 1
@@ -1097,6 +1130,207 @@ def plant_phase(card: str) -> int:
 
 
 # --------------------------------------------------------------------- #
+# phase 12: Fig. 5's static search
+# --------------------------------------------------------------------- #
+
+def load_static_golden() -> dict:
+    """{case: (arguments, golden)} of the committed static-search golden:
+    the workloads, and per family the top-k arrays (``int64`` indices)."""
+    import numpy as np
+
+    def floats(v):
+        return np.vectorize(float.fromhex, otypes=[np.float64])(
+            np.asarray(v, dtype=object))
+
+    data = json.loads(STATIC_GOLDEN.read_text())
+    out = {}
+    for name, case in data["cases"].items():
+        g = case["golden"]
+        families = {
+            fam: {key: (np.asarray(v, dtype=np.int64)
+                        if key == "topk_index" else floats(v))
+                  for key, v in arrays.items()}
+            for fam, arrays in g["families"].items()}
+        out[name] = (case["args"], {"workloads": g["workloads"],
+                                    "families": families,
+                                    "geomeans": g["geomeans"]})
+    return out
+
+
+def static_run(args: dict, **kw):
+    """The port's search on the card for one golden case, synchronised."""
+    import torch
+    from repro_torch.sim import static_search as ss
+    from repro_torch.sim.workloads import random_workloads
+
+    fams = (ss.FIG5_FAMILIES if args["families"] == "fig5"
+            else ss.registry_families())
+    res = ss.search_static(
+        random_workloads(args["n_workloads"], args["apps"], args["seed"]),
+        {name: fams[name] for name in args.get("only", fams)},
+        k=args["k"], multi_objective=args["multi_objective"], **kw)
+    torch.cuda.synchronize()
+    return res
+
+
+def static_banks(family: str) -> int:
+    from repro_torch.sim import static_search as ss
+
+    return {**ss.FIG5_FAMILIES,
+            **ss.registry_families()}[family].bandwidth_banks
+
+
+def static_index_rule(res, want: dict, what: str):
+    """Every slot's index equals the golden's or names its twin; weighted
+    speedups within STATIC_WS_RTOL.  Returns the twin picks per family
+    and the largest relative ws distance."""
+    import numpy as np
+    from repro_torch.sim.static_search import is_twin
+
+    check(res.workloads == want["workloads"], f"{what}: other workloads")
+    twins, worst = {}, 0.0
+    for fam, w in want["families"].items():
+        got, ref = res.topk_index[fam], w["topk_index"]
+        check(got.dtype == np.int64 and got.shape == ref.shape,
+              f"{what} {fam}: indices {got.dtype} {got.shape}")
+        twins[fam] = 0
+        for wi in range(ref.shape[0]):
+            for g, r in zip(got[wi].tolist(), ref[wi].tolist()):
+                check(is_twin(res.grids[fam], want["workloads"][wi], r, g),
+                      f"{what} {fam} workload {wi}: index {g} is neither "
+                      f"the golden's {r} nor its twin")
+                twins[fam] += int(g != r)
+        g_ws, w_ws = res.topk_ws[fam], w["topk_ws"]
+        finite = np.isfinite(w_ws)
+        check(np.array_equal(np.isfinite(g_ws), finite),
+              f"{what} {fam}: empty slots differ")
+        rel = float(np.max(np.abs(g_ws[finite] / w_ws[finite] - 1.0)))
+        check(rel <= STATIC_WS_RTOL, f"{what} {fam}: weighted speedup off "
+                                     f"the golden by {rel} (rtol "
+                                     f"{STATIC_WS_RTOL})")
+        worst = max(worst, rel)
+    return twins, worst
+
+
+def static_own_order(res, what: str) -> None:
+    """Each family's top-k equals the stable descending argsort (numpy's,
+    on the host) of the card's own scores of the whole grid, bit for
+    bit: the chunked fold and its tie-break, whatever the rounding."""
+    import numpy as np
+    from repro_torch.sim.static_search import _grid_scores
+
+    for fam in res.family_names:
+        scores = _grid_scores(res.workloads, res.grids[fam],
+                              static_banks(fam)).cpu().numpy()
+        order = np.argsort(-scores, axis=-1, kind="stable")[:, :res.k]
+        got_idx, got_ws = res.topk_index[fam], res.topk_ws[fam]
+        m = order.shape[1]
+        check(np.array_equal(got_idx[:, :m], order)
+              and np.array_equal(got_ws[:, :m],
+                                 np.take_along_axis(scores, order, -1))
+              and (got_idx[:, m:] == -1).all(),
+              f"{what} {fam}: top-k is not the card's own first maxima")
+
+
+def static_phase(card: str) -> int:
+    """Fig. 5's static search on the card against the numpy golden, with
+    the launch counts reset just before and read just after: the smoke
+    configuration (cold and two warm runs), its workloads over the
+    registry's families, the 640-workload study (cold and warm) and the
+    Pareto case.  Returns the greedy's launches (none)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.sim import static_search as ss
+
+    golden = load_static_golden()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+
+    def timed(args, runs: int):
+        walls, peak = [], 0
+        for i in range(runs):
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = static_run(args)
+            walls.append(time.perf_counter() - t0)
+        if runs > 1:
+            peak = torch.cuda.max_memory_allocated()
+        return res, walls, peak
+
+    for name in ("smoke", "smoke_registry"):
+        args, want = golden[name]
+        res, walls, peak = timed(args, 3 if name == "smoke" else 1)
+        twins, rel = static_index_rule(res, want, f"static {name}")
+        static_own_order(res, f"static {name}")
+        extra = {}
+        if name == "smoke":
+            geo = res.geomean("cache+bw+pref")
+            check(round(geo, 3) == FIG5_GEO_ALL3,
+                  f"static smoke: geo_all3 {geo!r} does not round to the "
+                  f"record's {FIG5_GEO_ALL3}")
+            extra = {"warm_s": min(walls[1:]), "warm_runs_s": walls[1:],
+                     "peak_bytes": peak, "geo_all3": geo,
+                     "geo_all3_golden": want["geomeans"]["cache+bw+pref"],
+                     "geo_all3_record": FIG5_GEO_ALL3}
+        emit(card, phase="static", case=name, args=args,
+             families=len(res.family_names), cold_s=walls[0], **extra,
+             twin_picks=twins, max_rel_ws_vs_golden=rel,
+             ws_rtol=STATIC_WS_RTOL, own_order_bit_identical=True)
+
+    args, want = golden["study"]
+    res, walls, peak = timed(args, 2)
+    twins, rel = static_index_rule(res, want, "static study")
+    w_count = args["n_workloads"]
+    chunks = {fam: list(ss._family_tables(
+        res.grids[fam], w_count, args["k"], ss.CHUNK_ELEMENTS)["valid"].shape)
+        for fam in res.family_names}
+    geo = {fam: res.geomean(fam) for fam in res.family_names}
+    geo_golden = want["geomeans"]
+    frac = {fam: res.frac_at_least(fam, 1.10) for fam in res.family_names}
+    frac_golden = {fam: float(np.mean(w["topk_ws"][:, 0] >= 1.10))
+                   for fam, w in want["families"].items()}
+
+    def all3_vs_best2(g):
+        return g["cache+bw+pref"] / max(g[f] for f in ss.FIG5_TWO_RESOURCE) \
+            - 1.0
+
+    emit(card, phase="static", case="study", args=args, cold_s=walls[0],
+         warm_s=walls[1], peak_bytes=peak, chunks_per_family=chunks,
+         twin_picks=twins, max_rel_ws_vs_golden=rel,
+         ws_rtol=STATIC_WS_RTOL, geomeans=geo, geomeans_golden=geo_golden,
+         frac_at_least_1_10=frac, frac_at_least_1_10_golden=frac_golden,
+         all3_vs_best2=all3_vs_best2(geo),
+         all3_vs_best2_golden=all3_vs_best2(geo_golden))
+
+    args, want = golden["pareto"]
+    res = static_run(args)
+    worst = 0.0
+    for fam, w in want["families"].items():
+        check(np.array_equal(res.topk_index[fam], w["topk_index"]),
+              f"static pareto {fam}: indices differ from the golden's")
+        for key in ("topk_ws", "topk_fairness"):
+            g = {"topk_ws": res.topk_ws, "topk_fairness":
+                 res.topk_fairness}[key][fam]
+            finite = np.isfinite(w[key])
+            check(np.array_equal(np.isfinite(g), finite),
+                  f"static pareto {fam}: empty slots differ")
+            rel = float(np.max(np.abs(g[finite] / w[key][finite] - 1.0)))
+            check(rel <= STATIC_PARETO_RTOL,
+                  f"static pareto {fam} {key}: off the golden by {rel}")
+            worst = max(worst, rel)
+    counts = launch_counts()
+    check(counts["lookahead_greedy"] == 0,
+          f"static: the search launched the greedy {counts}")
+    emit(card, phase="static", case="pareto", args=args,
+         indices_equal=True, max_rel_vs_golden=worst,
+         rtol=STATIC_PARETO_RTOL, launches=counts)
+    return counts["lookahead_greedy"]
+
+
+# --------------------------------------------------------------------- #
 # phases 5-6: the kernel-level path (UCP block planner + four kernels)
 # --------------------------------------------------------------------- #
 
@@ -1606,6 +1840,7 @@ def main() -> int:
         launches_managers = managers_phase(card)
         characterization_phase(card)
         launches_plant = plant_phase(card)
+        launches_static = static_phase(card)
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -1634,6 +1869,7 @@ def main() -> int:
             "launches_grid": launches_grid,
             "launches_managers": launches_managers,
             "launches_plant": launches_plant,
+            "launches_static": launches_static,
         }, *path_rows]
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,6 +45,7 @@ from repro_torch.core.prefetch_controller import throttle_decision
 from repro_torch.core.types import CBPParams, Mode, PrefetchMode, fig8_schedule
 from repro_torch.device import F64, DeviceLike, resolve_device
 from repro_torch.graph import CapturedProgram
+from repro_torch.numpy_order import numpy_order_sum
 from repro_torch.runtime.cbp_runtime import TrainingPlant
 from repro_torch.sim.timeline import (
     NOOP,
@@ -87,41 +88,6 @@ def _segment_starts(durations: np.ndarray) -> np.ndarray:
         starts.append(t)
         t += float(d)
     return np.array(starts, dtype=np.float64)
-
-
-def numpy_order_sum(vec: torch.Tensor) -> torch.Tensor:
-    """Sum ``(..., m)`` over the last axis in numpy's rounding order ->
-    ``(..., 1)``.
-
-    ``torch.sum`` accumulates in another order than numpy's
-    ``pairwise_sum``, so Algorithm 1's delay total would land an ulp off
-    the host golden.  ``m`` is static, so the add tree unrolls in Python,
-    as numpy's: sequential under 8 elements; eight accumulators (one
-    8-lane add per block here) up to 128, folded as ``((r0 + r1) + (r2 +
-    r3)) + ((r4 + r5) + (r6 + r7))`` and then the tail; recursive halving
-    on a multiple of 8 beyond.
-    """
-    def psum(lo: int, m: int) -> torch.Tensor:
-        if m < 8:
-            acc = vec[..., lo:lo + 1]
-            for i in range(lo + 1, lo + m):
-                acc = acc + vec[..., i:i + 1]
-            return acc
-        if m <= 128:
-            r = vec[..., lo:lo + 8]
-            i = 8
-            while i < m - (m % 8):
-                r = r + vec[..., lo + i:lo + i + 8]
-                i += 8
-            while r.shape[-1] > 1:        # the pairwise fold of the lanes
-                r = r[..., 0::2] + r[..., 1::2]
-            for k in range(lo + i, lo + m):
-                r = r + vec[..., k:k + 1]
-            return r
-        m2 = (m // 2) - ((m // 2) % 8)
-        return psum(lo, m2) + psum(lo + m2, m - m2)
-
-    return psum(0, vec.shape[-1])
 
 
 def _allocate_bandwidth(delay, total_bw, min_bw, n: int):

@@ -11,16 +11,23 @@ row axis batches the whole solve; the stacked timeline
 Contract (``tests/test_torch_memsys.py``): within rtol 1e-9 of
 ``memsys_jax`` run in float64, and within 1e-5 of the numpy golden.  The
 gap to ``memsys_jax`` is op order and the ``exp``/``pow`` implementations
-of each backend, not precision.
+of each backend, not precision.  Toward the numpy golden the model pins
+what it can: every division is by a tensor, the bank powers come from
+numpy and the bank sums run in numpy's order, so on the CPU the static
+search's scores equal the golden's bit for bit, and on the card only
+``exp`` is another implementation.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import F64, as_f64
+from repro_torch.numpy_order import numpy_order_sum
 from repro_torch.sim.apps import MODEL_FIELDS
 
 # Constants of the interval model (copied from repro.sim.memsys).
@@ -71,30 +78,52 @@ def _bank_affinity(n_apps: int, n_banks: int,
     return a / a.sum(dim=-1, keepdim=True)
 
 
-def _banked_queueing(traffic_q: torch.Tensor, bw: torch.Tensor,
-                     banks: torch.Tensor, max_banks: int):
-    """Affinity-weighted per-bank queueing with a per-row bank count.
+@functools.lru_cache(maxsize=None)
+def _skew_powers(max_banks: int, device: torch.device) -> torch.Tensor:
+    """``BANK_SKEW ** k`` for ``k < max_banks``, computed by numpy (the
+    golden's ``pow``) and kept on ``device``."""
+    return torch.as_tensor(
+        np.power(BANK_SKEW, np.arange(max_banks, dtype=np.float64)),
+        device=device)
 
-    ``banks`` broadcasts against ``(..., n)`` (float, >= 1); ``max_banks``
-    is the bank-axis width.  Rows with ``banks == 1`` reduce exactly to
-    the flat partitioned channel model: the affinity is 1.0, masked banks
-    add exact zeros to the queue sum and ``+inf`` to the cap min.
-    Returns ``(q_ns, cap_gbps)``.
+
+def _bank_weights(shape, banks: torch.Tensor, max_banks: int,
+                  device: torch.device):
+    """The banked regime's per-(row, client, bank) affinity for a
+    per-row bank count: ``(nb, active, aff)``, with ``nb`` the bank count
+    ``(..., n, 1)``, ``active`` the banks below it and ``aff`` the
+    normalised affinity ``(..., n, max_banks)``, zero on masked banks.
+
+    Every affinity row is a rotation of one vector, so two copies of an
+    application that swap allocations tie in exact arithmetic: the powers
+    come from numpy and the sum runs in numpy's order, so that only the
+    golden's own rounding splits such a tie.
     """
-    n = traffic_q.shape[-1]
-    dev = traffic_q.device
-    i = torch.arange(n, dtype=F64, device=dev)[:, None]            # (n, 1)
-    b = torch.arange(max_banks, dtype=F64, device=dev)[None, :]    # (1, MAXB)
-    nb = torch.broadcast_to(banks, traffic_q.shape)[..., None]     # (..., n, 1)
+    n = shape[-1]
+    i = torch.arange(n, dtype=F64, device=device)[:, None]          # (n, 1)
+    b = torch.arange(max_banks, dtype=F64, device=device)[None, :]  # (1, MAXB)
+    nb = torch.broadcast_to(banks, shape)[..., None]                # (..., n, 1)
     active = b < nb
     a_raw = torch.where(
-        active, torch.pow(BANK_SKEW, torch.remainder(i + b, nb)), 0.0)
-    aff = a_raw / a_raw.sum(dim=-1, keepdim=True)
+        active, _skew_powers(max_banks, device)[
+            torch.remainder(i + b, nb).long()], 0.0)
+    return nb, active, a_raw / numpy_order_sum(a_raw)
+
+
+def _banked_queueing(traffic_q: torch.Tensor, bw: torch.Tensor, weights):
+    """Affinity-weighted per-bank queueing (``weights`` from
+    :func:`_bank_weights`), the bank sum in numpy's order.
+
+    Rows with one bank reduce exactly to the flat partitioned channel
+    model: the affinity is 1.0, masked banks add exact zeros to the queue
+    sum and ``+inf`` to the cap min.  Returns ``(q_ns, cap_gbps)``.
+    """
+    nb, active, aff = weights
     bank_bw = bw[..., None] / nb
     rho_b = traffic_q[..., None] * aff / torch.clamp(bank_bw, min=1e-6)
     rho_cb = torch.clamp(rho_b, 0.0, RHO_MAX)
     q_bank = Q_SCALE_NS * rho_cb / (1.0 - rho_cb)
-    q_ns = torch.sum(aff * q_bank, dim=-1)
+    q_ns = numpy_order_sum(aff * q_bank)[..., 0]
     cap = torch.amin(
         torch.where(active, bank_bw / torch.where(active, aff, 1.0),
                     torch.inf),
@@ -134,6 +163,12 @@ def _evaluate_rowflags(
     cache_part = torch.broadcast_to(cache_partitioned, shape)
     bw_part = torch.broadcast_to(bandwidth_partitioned, shape)
     occ_p = torch.broadcast_to(cache_units, shape).to(F64)
+    if max_banks > 1:
+        weights = _bank_weights(shape, bandwidth_banks, max_banks,
+                                ipc.device)
+    # A tensor divisor: the card turns a division by a host scalar into a
+    # product with its reciprocal, which is not the golden's division.
+    thousand = torch.full((), 1000.0, dtype=F64, device=ipc.device)
 
     for _ in range(iters):
         # ---- cache occupancy ------------------------------------------ #
@@ -153,11 +188,10 @@ def _evaluate_rowflags(
                    + PF_QUEUE_WEIGHT * (covered + useless))
 
         # ---- memory queuing ------------------------------------------- #
-        traffic = ipc * FREQ_GHZ * reqki * LINE_BYTES / 1000.0
-        traffic_q = ipc * FREQ_GHZ * reqki_q * LINE_BYTES / 1000.0
+        traffic = ipc * FREQ_GHZ * reqki * LINE_BYTES / thousand
+        traffic_q = ipc * FREQ_GHZ * reqki_q * LINE_BYTES / thousand
         if max_banks > 1:
-            q_p, cap_p = _banked_queueing(
-                traffic_q, bw, bandwidth_banks, max_banks)
+            q_p, cap_p = _banked_queueing(traffic_q, bw, weights)
             cap_p = torch.broadcast_to(cap_p, shape)
         else:
             rho_p = traffic_q / torch.clamp(bw, min=1e-6)
@@ -178,11 +212,11 @@ def _evaluate_rowflags(
         # ---- IPC ------------------------------------------------------ #
         penalty_cyc = (DRAM_LAT_NS + q_ns) * FREQ_GHZ / params["mlp"]
         cpi = (params["cpi_base"]
-               + params["apki"] / 1000.0 * llc_extra_cycles
-               + exposed / 1000.0 * penalty_cyc)
+               + params["apki"] / thousand * llc_extra_cycles
+               + exposed / thousand * penalty_cyc)
         ipc_demand = 1.0 / cpi
         ipc_cap = RHO_MAX * cap_gbps / torch.clamp(
-            FREQ_GHZ * reqki * LINE_BYTES / 1000.0, min=1e-9)
+            FREQ_GHZ * reqki * LINE_BYTES / thousand, min=1e-9)
         ipc_new = torch.minimum(ipc_demand, ipc_cap)
         ipc = DAMPING * ipc + (1.0 - DAMPING) * ipc_new
         mpki_eff = m

@@ -2,11 +2,11 @@
 (counterpart of :mod:`repro.sim.policies`).
 
 The registry is a copy: the same 14 families, in the same order, with the
-same Table-3 modes, timeline variants, boundary-branch ids and bank
-counts, so ``MANAGER_NAMES`` and every sweep derive from one list.  The
-Fig. 5 static-grid vocabularies of the reference are not ported yet; each
-family's ``host_golden`` (its loop on the scalar plant) is attached by
-:mod:`repro_torch.sim.managers`.
+same Table-3 modes, timeline variants, boundary-branch ids, bank counts
+and Fig. 5 static-grid vocabularies, so ``MANAGER_NAMES``, every sweep
+and :func:`repro_torch.sim.static_search.registry_families` derive from
+one list.  Each family's ``host_golden`` (its loop on the scalar plant)
+is attached by :mod:`repro_torch.sim.managers`.
 
 :func:`auction_allocate` and :func:`qos_allocate` are the tensor
 counterparts of ``auction_allocate_jax`` / ``qos_allocate_jax`` (same op
@@ -50,8 +50,13 @@ class UnknownManagerError(ValueError):
 class PolicyFamily:
     """One manager family: Table-3 ``modes`` for the classic families
     (``None`` for CPpf's variant timeline and the registry policies), the
-    timeline ``variant``, the boundary-branch ids, the bank count and the
-    scalar host loop."""
+    timeline ``variant``, the boundary-branch ids, the bank count, the
+    Fig. 5 static-grid vocabulary and the scalar host loop.
+
+    ``static_grid`` holds plain kwargs of
+    :class:`repro_torch.sim.static_search.FamilySpec` (``manage_cache`` /
+    ``manage_bw`` / ``manage_pf`` / ``pf_all_on`` / ``bandwidth_banks``),
+    so the registry never imports the search."""
 
     name: str
     modes: Optional[Tuple[Mode, Mode, PrefetchMode]] = None
@@ -59,6 +64,7 @@ class PolicyFamily:
     cache_policy: int = CACHE_LOOKAHEAD
     bw_policy: int = BW_ALG1
     bandwidth_banks: int = 1
+    static_grid: Optional[Dict[str, object]] = None
     #: ``(plant, total_ms, params) -> ManagerResult``: the family's loop on
     #: the scalar plant, attached by :mod:`repro_torch.sim.managers` (the
     #: registry imports no plant).
@@ -186,33 +192,54 @@ def qos_allocate(curves, bw_delay, slowdown, *, min_ways, total_units: int,
 # the registered families (same order as the reference registry)
 # --------------------------------------------------------------------- #
 
+def _grid(**kwargs) -> Dict[str, object]:
+    return kwargs
+
+
 register(PolicyFamily(
     "baseline",
-    modes=(Mode.UNPARTITIONED, Mode.UNPARTITIONED, PrefetchMode.OFF)))
+    modes=(Mode.UNPARTITIONED, Mode.UNPARTITIONED, PrefetchMode.OFF),
+    static_grid=_grid()))
 register(PolicyFamily(
-    "equal off", modes=(Mode.EQUAL, Mode.EQUAL, PrefetchMode.OFF)))
+    "equal off", modes=(Mode.EQUAL, Mode.EQUAL, PrefetchMode.OFF),
+    static_grid=_grid()))
 register(PolicyFamily(
-    "equal on", modes=(Mode.EQUAL, Mode.EQUAL, PrefetchMode.ON)))
+    "equal on", modes=(Mode.EQUAL, Mode.EQUAL, PrefetchMode.ON),
+    static_grid=_grid(pf_all_on=True)))
 register(PolicyFamily(
     "only cache",
-    modes=(Mode.DYNAMIC, Mode.UNPARTITIONED, PrefetchMode.OFF)))
+    modes=(Mode.DYNAMIC, Mode.UNPARTITIONED, PrefetchMode.OFF),
+    static_grid=_grid(manage_cache=True)))
 register(PolicyFamily(
-    "only bw", modes=(Mode.UNPARTITIONED, Mode.DYNAMIC, PrefetchMode.OFF)))
+    "only bw", modes=(Mode.UNPARTITIONED, Mode.DYNAMIC, PrefetchMode.OFF),
+    static_grid=_grid(manage_bw=True)))
 register(PolicyFamily(
     "only pref",
-    modes=(Mode.UNPARTITIONED, Mode.UNPARTITIONED, PrefetchMode.DYNAMIC)))
+    modes=(Mode.UNPARTITIONED, Mode.UNPARTITIONED, PrefetchMode.DYNAMIC),
+    static_grid=_grid(manage_pf=True)))
 register(PolicyFamily(
     "bw+pref",
-    modes=(Mode.UNPARTITIONED, Mode.DYNAMIC, PrefetchMode.DYNAMIC)))
+    modes=(Mode.UNPARTITIONED, Mode.DYNAMIC, PrefetchMode.DYNAMIC),
+    static_grid=_grid(manage_bw=True, manage_pf=True)))
 register(PolicyFamily(
-    "bw+cache", modes=(Mode.DYNAMIC, Mode.DYNAMIC, PrefetchMode.OFF)))
+    "bw+cache", modes=(Mode.DYNAMIC, Mode.DYNAMIC, PrefetchMode.OFF),
+    static_grid=_grid(manage_cache=True, manage_bw=True)))
 register(PolicyFamily(
     "cache+pref",
-    modes=(Mode.DYNAMIC, Mode.UNPARTITIONED, PrefetchMode.DYNAMIC)))
-register(PolicyFamily("CPpf", variant="cppf"))
+    modes=(Mode.DYNAMIC, Mode.UNPARTITIONED, PrefetchMode.DYNAMIC),
+    static_grid=_grid(manage_cache=True, manage_pf=True)))
 register(PolicyFamily(
-    "CBP", modes=(Mode.DYNAMIC, Mode.DYNAMIC, PrefetchMode.DYNAMIC)))
+    "CPpf", variant="cppf",
+    static_grid=_grid(manage_cache=True, pf_all_on=True)))
 register(PolicyFamily(
-    "auction", cache_policy=CACHE_AUCTION, bw_policy=BW_AUCTION))
-register(PolicyFamily("qos", cache_policy=CACHE_QOS, bw_policy=BW_QOS))
-register(PolicyFamily("bank bw", bandwidth_banks=4))
+    "CBP", modes=(Mode.DYNAMIC, Mode.DYNAMIC, PrefetchMode.DYNAMIC),
+    static_grid=_grid(manage_cache=True, manage_bw=True, manage_pf=True)))
+register(PolicyFamily(
+    "auction", cache_policy=CACHE_AUCTION, bw_policy=BW_AUCTION,
+    static_grid=_grid(manage_cache=True, manage_bw=True)))
+register(PolicyFamily(
+    "qos", cache_policy=CACHE_QOS, bw_policy=BW_QOS,
+    static_grid=_grid(manage_cache=True, manage_bw=True)))
+register(PolicyFamily(
+    "bank bw", bandwidth_banks=4,
+    static_grid=_grid(manage_bw=True, bandwidth_banks=4)))

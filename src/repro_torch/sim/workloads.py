@@ -1,9 +1,11 @@
-"""Workload mixes: paper Table 2 and the random Table-3 sweep mixes
-(copy of the parts of :mod:`repro.sim.workloads` the sweep uses).
+"""Workload mixes: paper Table 2, the random Table-3 sweep mixes and the
+random Fig. 5 workloads (copy of the parts of :mod:`repro.sim.workloads`
+the sweep and the static search use).
 
-Given the same seed, :func:`random_mixes` draws exactly the mixes the
-reference draws (``tests/test_torch_sweep.py`` pins it): the draw order
-of the generator is part of the reproduction.
+Given the same seed, :func:`random_mixes` and :func:`random_workloads`
+draw exactly what the reference draws (``tests/test_torch_sweep.py``,
+``tests/test_torch_static_search.py``): the draw order of the generator
+is part of the reproduction.
 """
 from __future__ import annotations
 
@@ -48,6 +50,17 @@ WORKLOADS: Dict[str, List[str]] = {k: _parse(v) for k, v in _TABLE2.items()}
 
 for _k, _apps in WORKLOADS.items():
     assert len(_apps) == 16, (_k, len(_apps))
+
+
+def random_workloads(n_workloads: int, apps_per_workload: int = 4,
+                     seed: int = 0) -> List[List[str]]:
+    """Randomly generated workloads (paper §2.3: 640 x 4 apps)."""
+    rng = np.random.default_rng(seed)
+    return [
+        [APP_NAMES[i] for i in rng.integers(0, len(APP_NAMES),
+                                            size=apps_per_workload)]
+        for _ in range(n_workloads)
+    ]
 
 
 # Sensitivity-class buckets (paper Fig. 2 / the _TABLE blocks in apps.py),

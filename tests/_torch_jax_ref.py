@@ -502,9 +502,31 @@ def _case_plant(out: dict) -> None:
             out[f"{name}|{f}"] = getattr(res, f)
 
 
+#: ``tests/test_static_search.py::test_batched_matches_numpy_backend``'s
+#: cases: (apps per workload, seed) of ``random_workloads(4, ...)``, k = 3.
+STATIC_CASES = ((2, 3), (3, 5))
+
+
+def _case_static_search(out: dict) -> None:
+    """The JAX backend of the Fig. 5 static search
+    (``repro.sim.static_search.search_static(backend="jax")``) on
+    :data:`STATIC_CASES`."""
+    from repro.sim.static_search import search_static
+    from repro.sim.workloads import random_workloads
+
+    for n_apps, seed in STATIC_CASES:
+        res = search_static(random_workloads(4, n_apps, seed=seed), k=3,
+                            backend="jax")
+        out[f"{n_apps}_{seed}|baseline_ipc"] = res.baseline_ipc
+        for fam in res.family_names:
+            out[f"{n_apps}_{seed}|{fam}|topk_ws"] = res.topk_ws[fam]
+            out[f"{n_apps}_{seed}|{fam}|topk_index"] = res.topk_index[fam]
+
+
 CASES = {"lookahead": _case_lookahead, "memsys": _case_memsys,
          "controllers": _case_controllers, "sweep": _case_sweep,
-         "planner": _case_planner, "grid": _case_grid, "plant": _case_plant}
+         "planner": _case_planner, "grid": _case_grid, "plant": _case_plant,
+         "static_search": _case_static_search}
 
 
 if __name__ == "__main__":

@@ -29,6 +29,8 @@ sys.meta_path.insert(0, Blocker())
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
+assert {"repro_torch.numpy_order", "repro_torch.sim.static_search"} <= set(
+    names), names
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
@@ -45,6 +47,7 @@ assert not torch.cuda.is_available()
 from repro_torch.core.cache_controller import lookahead_allocate
 from repro_torch.sim import random_mixes, run_all_managers, run_sweep
 from repro_torch.sim.characterization import sensitivity_table
+from repro_torch.sim.static_search import search_static
 from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
                                  run_fused_schedule)
 from repro_torch.train import make_stream_plant_model
@@ -59,7 +62,8 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
                                         total_units=48, total_bandwidth=64.0,
                                         total_ms=10.0),
              lambda: FusedTrainingPlant(4, 48, 64.0, step_model),
-             lambda: TrainingPlant(4, 48, 64.0, step_fn)):
+             lambda: TrainingPlant(4, 48, 64.0, step_fn),
+             lambda: search_static([["lbm", "mcf"]])):
     try:
         call()
     except RuntimeError as exc:
