@@ -17,8 +17,9 @@ It drives the port's main path, the paper's Table-3 sweep
              call (captured from the path, which stops there): the
              4096-mix sweep in buckets and as one table, the segment
              backend, each Fig. 12 grid (U=512 among them) and the scalar
-             plant on w1 and on the Fig. 1 pair (B=1, n=2, U=64) and the
-             training plant's first boundary (B=1, n=12, U=96):
+             plant on w1 and on the Fig. 1 pair (B=1, n=2, U=64), the
+             training plant's first boundary (B=1, n=12, U=96) and the
+             streaming sweep's first chunk at full width (B=512, n=16):
              ``alloc`` and ``balance`` must be exactly equal.  Prints the
              kernel's and the plain version's times and the kernel's bound.
 3. sweep   — all 14 managers over ``random_mixes(32, 16, seed=1)``, 100 ms:
@@ -93,6 +94,27 @@ before it and read just after:
              within rtol 1e-5 of the golden, the Pareto case's indices
              equal and its floats within 1e-12; the greedy launches
              nothing.
+13. stream — the fault-tolerant streaming sweep
+             (``repro_torch.sim.stream_sweep.run_stream``) against the
+             reference's float64 aggregates, the committed
+             ``tests/data/stream_golden.json`` (``tools/stream_golden.py``):
+             ``stream_bench.py``'s smoke configuration (64 mixes in chunks
+             of 16, ``baseline`` and ``CBP``, 20 ms, zipf): overlapped and
+             serial, bit for bit equal, CBP's geomean rounding to the
+             record's 1.401397, the kill-free fault plan against the
+             golden, and the resume-parity gate (a dispatch error at chunk
+             0, NaN poison at chunk 1, a kill at chunk 2, resumed from a
+             checkpoint in a temporary directory: bit for bit the clean
+             run's, chunk 1 quarantined at coverage 0.75); then the first
+             24 chunks of ``stream_bench.py::full``'s stream (12,288 mixes
+             in chunks of 512 x 16 apps, 50 ms, a diurnal period of 24
+             chunks): serial and overlapped, bit for bit equal, warm walls
+             and mixes/s, greedy launches 24 times those of the first
+             chunk's ``run_timelines`` alone, and peak device memory at
+             most 1.10 times that of the stream's 1-chunk prefix.  Counts
+             exact (``mix_count``, ``slowdown_hist``, quarantined chunks,
+             coverage, retries), the float aggregates within rtol 1e-9;
+             every healthy run at coverage 1.0 with no retry.
 
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
@@ -291,6 +313,18 @@ STATIC_WS_RTOL = 1e-5
 STATIC_PARETO_RTOL = 1e-12
 FIG5_GEO_ALL3 = 1.269
 
+#: Phase 13: the reference's float64 stream aggregates, the port's
+#: sweep tolerance for them, the committed results/bench/stream_bench.json
+#: record's CBP geomean, the bound on the full head's peak memory against
+#: its 1-chunk prefix, and stream_bench.py::resume_parity_gate's plan.
+STREAM_GOLDEN = ROOT / "tests" / "data" / "stream_golden.json"
+STREAM_RTOL = 1e-9
+STREAM_CBP_RECORD = 1.401397
+STREAM_PEAK_RATIO = 1.10
+STREAM_PARITY_PLAN = [{"kind": "dispatch_error", "chunk": 0, "count": 1},
+                      {"kind": "nan_poison", "chunk": 1},
+                      {"kind": "kill", "chunk": 2}]
+
 N_APPS, TOTAL_UNITS, MIN_WAYS = 16, 256, 4
 SMALL_MIXES, SCALE_MIXES, TOTAL_MS, SEED = 32, 4096, 100.0, 1
 RTOL = 1e-9
@@ -401,9 +435,10 @@ def path_captures():
     """{case: runner} for every path whose greedy inputs the kernel is
     held to: the 4096-mix sweep in buckets (the main path) and as one
     table (all five Lookahead managers in one launch, B = 20,480), the
-    segment backend, each Fig. 12 grid (the 512-unit one included) and
-    the scalar plant on w1 and on the Fig. 1 pair (64 units; CPpf's
-    masked call too) and the training plant (B = 1, n = 12, U = 96)."""
+    segment backend, each Fig. 12 grid (the 512-unit one included), the
+    scalar plant on w1 and on the Fig. 1 pair (64 units; CPpf's masked
+    call too), the training plant (B = 1, n = 12, U = 96) and the
+    streaming sweep's first chunk (B = 512)."""
     from repro_torch.core.types import CBPParams
     from repro_torch.sim import (WORKLOADS, CMPConfig, random_mixes,
                                  run_all_managers, run_sweep)
@@ -436,8 +471,28 @@ def path_captures():
             ["lbm", "xalancbmk"], total_ms=TOTAL_MS, names=["CPpf"],
             config=fig1),
         "training_plant": training_plant_run,
+        "stream": stream_head_step,
     })
     return cases
+
+
+def stream_head_step():
+    """Chunk 0 of phase 13's full head through the stream's own per-chunk
+    step (``_StreamRunner.dispatch``, which ``_dispatch_and_fetch`` calls
+    inside its retry barrier), on the runner's CUDA stream: it reaches the
+    greedy at the first CBP boundary with B = 512, n = 16, U = 256."""
+    import torch
+    from repro_torch.sim.stream_sweep import _StreamRunner
+
+    args = json.loads(STREAM_GOLDEN.read_text())["cases"]["full_head"][
+        "config"]
+    runner = _StreamRunner(stream_config(args), None, False, time.sleep,
+                           torch.device("cuda"))
+    try:
+        with runner.on_device():
+            runner.dispatch(runner._generate(0))
+    finally:
+        torch.cuda.synchronize()
 
 
 def training_plant_run():
@@ -1331,6 +1386,228 @@ def static_phase(card: str) -> int:
 
 
 # --------------------------------------------------------------------- #
+# phase 13: the fault-tolerant streaming sweep
+# --------------------------------------------------------------------- #
+
+def load_stream_golden() -> dict:
+    """{case: {"config", "fingerprint", "runs": {run: {"plan",
+    "aggregates", "report", "quarantined"}}}} of the committed stream
+    golden, the float aggregates as float64 arrays."""
+    import numpy as np
+
+    data = json.loads(STREAM_GOLDEN.read_text())
+    for case in data["cases"].values():
+        for run in case["runs"].values():
+            run["aggregates"] = {
+                k: (np.vectorize(float.fromhex, otypes=[np.float64])(
+                    np.asarray(v, dtype=object))
+                    if k in ("log_ws_sum", "max_slowdown", "min_fairness")
+                    else np.asarray(v, dtype=np.int64))
+                for k, v in run["aggregates"].items()}
+    return data["cases"]
+
+
+def stream_config(args: dict, **kw):
+    """The port's ``StreamConfig`` of one golden case."""
+    from repro_torch.sim.stream_sweep import StreamConfig
+    from repro_torch.sim.workloads import StreamScenario
+
+    fields = {k: v for k, v in args.items() if k != "scenario"}
+    if fields.get("managers") is not None:
+        fields["managers"] = tuple(fields["managers"])
+    return StreamConfig(**fields, scenario=StreamScenario(**args["scenario"]),
+                        **kw)
+
+
+def stream_check(report, run: dict, what: str) -> float:
+    """Counts, quarantined chunks, coverage and retries equal to the
+    golden run; the float aggregates within STREAM_RTOL (``log_ws_sum``
+    of a manager whose weighted speedups are 1 up to rounding: within one
+    ulp of 1.0 per mix).  Returns the largest relative distance held by
+    STREAM_RTOL."""
+    import numpy as np
+
+    tree, want = report.aggregates.to_tree(), run["aggregates"]
+    for key in ("mix_count", "slowdown_hist"):
+        check(np.array_equal(tree[key], want[key]),
+              f"{what}: {key} differs from the golden")
+    check([c for c, _ in report.quarantined] == run["quarantined"],
+          f"{what}: quarantined {report.quarantined} != golden chunks "
+          f"{run['quarantined']}")
+    for key in ("coverage", "mixes_covered", "retries"):
+        check(getattr(report, key) == run["report"][key],
+              f"{what}: {key} {getattr(report, key)} != golden "
+              f"{run['report'][key]}")
+    worst = 0.0
+    eps = float(np.finfo(np.float64).eps)
+    for key in ("log_ws_sum", "max_slowdown", "min_fairness"):
+        got, ref = tree[key], want[key]
+        diff, scale = np.abs(got - ref), np.abs(ref)
+        floor = want["mix_count"] * eps if key == "log_ws_sum" else 0.0
+        check(bool((diff <= np.maximum(STREAM_RTOL * scale, floor)).all()),
+              f"{what}: {key} {got.tolist()} off the golden {ref.tolist()}")
+        held = (STREAM_RTOL * scale >= floor) & (scale > 0)
+        if held.any():
+            worst = max(worst, float((diff[held] / scale[held]).max()))
+    return worst
+
+
+def stream_same(a, b) -> bool:
+    import numpy as np
+
+    ta, tb = a.aggregates.to_tree(), b.aggregates.to_tree()
+    return all(np.array_equal(ta[k], tb[k], equal_nan=True) for k in ta)
+
+
+def stream_healthy(report, what: str) -> None:
+    check(report.coverage == 1.0 and report.retries == 0
+          and report.quarantined == [],
+          f"{what}: a healthy run reported coverage {report.coverage}, "
+          f"{report.retries} retries, quarantined {report.quarantined}")
+
+
+def stream_phase(card: str) -> int:
+    """The streaming sweep on the card, with the launch counts reset just
+    before its first stream and read after its last: the bench smoke
+    (overlapped, serial, the kill-free plan, the resume-parity gate) and
+    the full head (its first chunk's greedy launches alone, its 1-chunk
+    prefix, serial and overlapped).  Returns the greedy's launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.runtime.faultinject import FaultPlan, InjectedProcessKill
+    from repro_torch.sim.stream_sweep import _StreamRunner, run_stream
+
+    golden = load_stream_golden()
+    no_sleep = lambda s: None  # noqa: E731
+
+    def greedy() -> int:
+        return launch_counts()["lookahead_greedy"]
+
+    def timed(cfg, **kw):
+        torch.cuda.synchronize()
+        before = greedy()
+        t0 = time.perf_counter()
+        report = run_stream(cfg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        return report, time.perf_counter() - t0, greedy() - before
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+
+    # ---- the bench smoke ------------------------------------------- #
+    g = golden["bench_smoke"]
+    cfg = stream_config(g["config"])
+    overlapped, wall_ov, launch_ov = timed(cfg, overlap=True)
+    serial, wall_se, launch_se = timed(cfg, overlap=False)
+    for rep, what in ((overlapped, "overlapped"), (serial, "serial")):
+        stream_healthy(rep, f"stream bench_smoke {what}")
+    rel = stream_check(overlapped, g["runs"]["healthy"],
+                       "stream bench_smoke")
+    check(stream_same(overlapped, serial),
+          "stream bench_smoke: overlapped and serial aggregates differ")
+    geo = overlapped.geomean_ws["CBP"]
+    check(geo == STREAM_CBP_RECORD,
+          f"stream bench_smoke: CBP geomean {geo} does not round to the "
+          f"record's {STREAM_CBP_RECORD}")
+    plan = FaultPlan.from_dicts(STREAM_PARITY_PLAN)
+    clean, _, _ = timed(cfg, fault_plan=plan.without_kills(),
+                        sleep_fn=no_sleep)
+    rel = max(rel, stream_check(clean, g["runs"]["faults"],
+                                "stream bench_smoke faults"))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = stream_config(g["config"], checkpoint_dir=f"{tmp}/ck",
+                           checkpoint_every=1)
+        killed = False
+        try:
+            run_stream(ck, fault_plan=plan, sleep_fn=no_sleep,
+                       device="cuda")
+        except InjectedProcessKill:
+            killed = True
+        check(killed, "stream resume gate: the injected kill did not fire")
+        resumed = run_stream(ck, fault_plan=plan.without_kills(),
+                             resume=True, sleep_fn=no_sleep, device="cuda")
+    check(resumed.resumed_from is not None,
+          "stream resume gate: no checkpoint was restored")
+    check(stream_same(resumed, clean),
+          "stream resume gate: resumed aggregates differ from the clean "
+          "run's")
+    check([c for c, _ in resumed.quarantined] == [1]
+          and resumed.coverage == 0.75 and resumed.retries >= 1
+          and "mix" in resumed.quarantined[0][1],
+          f"stream resume gate: quarantined {resumed.quarantined}, "
+          f"coverage {resumed.coverage}, retries {resumed.retries}")
+    emit(card, phase="stream", case="bench_smoke", config=g["config"],
+         wall_overlap_s=wall_ov, wall_serial_s=wall_se,
+         launches_overlap=launch_ov, launches_serial=launch_se,
+         cbp_geomean_ws=geo, cbp_geomean_record=STREAM_CBP_RECORD,
+         max_rel_vs_golden=rel, rtol=STREAM_RTOL,
+         overlap_bit_identical=True,
+         resume={"resumed_from": resumed.resumed_from,
+                 "quarantined": [c for c, _ in resumed.quarantined],
+                 "coverage": resumed.coverage,
+                 "retries": resumed.retries, "bit_identical": True})
+
+    # ---- the full head --------------------------------------------- #
+    g = golden["full_head"]
+    cfg = stream_config(g["config"])
+    runner = _StreamRunner(cfg, None, False, time.sleep,
+                           torch.device("cuda"))
+    torch.cuda.synchronize()
+    before = greedy()
+    with runner.on_device():
+        pending, _base = runner.dispatch(runner._generate(0))
+        pending.block_until_ready()
+    one_chunk = greedy() - before
+    del runner, pending, _base
+    check(one_chunk > 0, "stream full_head: the first chunk launched no "
+                         "greedy")
+
+    prefix = stream_config({**g["config"],
+                            "n_mixes": g["config"]["chunk_size"]})
+    # Peaks as max_memory_allocated gives them, and net of what earlier
+    # phases leave allocated (resident), both bounded.
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timed(prefix, overlap=False)
+    peak_one = torch.cuda.max_memory_allocated()
+    walls, peaks, launches, reports = {}, {}, {}, {}
+    for mode, overlap in (("serial", False), ("overlap", True)):
+        torch.cuda.reset_peak_memory_stats()
+        reports[mode], walls[mode], launches[mode] = timed(
+            cfg, overlap=overlap)
+        peaks[mode] = torch.cuda.max_memory_allocated()
+        stream_healthy(reports[mode], f"stream full_head {mode}")
+        check(launches[mode] == cfg.n_chunks * one_chunk,
+              f"stream full_head {mode}: {launches[mode]} greedy launches, "
+              f"not {cfg.n_chunks} x {one_chunk}")
+        check(peaks[mode] <= STREAM_PEAK_RATIO * peak_one
+              and peaks[mode] - resident
+              <= STREAM_PEAK_RATIO * (peak_one - resident),
+              f"stream full_head {mode}: peak {peaks[mode]} bytes over "
+              f"{STREAM_PEAK_RATIO} x the 1-chunk prefix's {peak_one} "
+              f"({resident} resident before both)")
+    rel = stream_check(reports["serial"], g["runs"]["healthy"],
+                       "stream full_head")
+    check(stream_same(reports["serial"], reports["overlap"]),
+          "stream full_head: overlapped and serial aggregates differ")
+    counts = launch_counts()
+    emit(card, phase="stream", case="full_head", config=g["config"],
+         chunks=cfg.n_chunks, wall_serial_s=walls["serial"],
+         wall_overlap_s=walls["overlap"],
+         mixes_per_s={k: cfg.n_mixes / v for k, v in walls.items()},
+         greedy_launches=launches, greedy_launches_first_chunk=one_chunk,
+         peak_bytes=peaks, peak_bytes_one_chunk=peak_one,
+         resident_bytes=resident, peak_ratio_bound=STREAM_PEAK_RATIO,
+         cbp_geomean_ws=reports["serial"].geomean_ws["CBP"],
+         max_rel_vs_golden=rel, rtol=STREAM_RTOL,
+         overlap_bit_identical=True, launches=counts)
+    check(counts["lookahead_greedy"] > 0, "stream: the greedy never ran")
+    return counts["lookahead_greedy"]
+
+
+# --------------------------------------------------------------------- #
 # phases 5-6: the kernel-level path (UCP block planner + four kernels)
 # --------------------------------------------------------------------- #
 
@@ -1841,6 +2118,7 @@ def main() -> int:
         characterization_phase(card)
         launches_plant = plant_phase(card)
         launches_static = static_phase(card)
+        launches_stream = stream_phase(card)
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -1870,6 +2148,7 @@ def main() -> int:
             "launches_managers": launches_managers,
             "launches_plant": launches_plant,
             "launches_static": launches_static,
+            "launches_stream": launches_stream,
         }, *path_rows]
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,7 +2,8 @@
 :mod:`repro.sim`): profiles, workloads, the interval model, the manager
 registry, the scalar plant and its managers, the stacked Fig. 8
 timelines, the Table-3 sweep, Fig. 5's static search
-(:mod:`repro_torch.sim.static_search`) and the single-application
+(:mod:`repro_torch.sim.static_search`), the fault-tolerant streaming sweep
+(:mod:`repro_torch.sim.stream_sweep`) and the single-application
 characterization (:mod:`repro_torch.sim.characterization`)."""
 from repro_torch.sim.apps import AppArrays, from_numpy, stack_mixes
 from repro_torch.sim.managers import (
@@ -32,6 +33,16 @@ from repro_torch.sim.static_search import (
     registry_families,
     search_static,
 )
+from repro_torch.sim.stream_sweep import (
+    CheckpointMismatchError,
+    NumericalDivergenceError,
+    RetryPolicy,
+    StreamAbortedError,
+    StreamAggregates,
+    StreamConfig,
+    StreamReport,
+    run_stream,
+)
 from repro_torch.sim.sweep import (
     BatchedCMPPlant,
     SweepResult,
@@ -53,6 +64,9 @@ __all__ = [
     "FIG5_FAMILIES", "FIG5_TWO_RESOURCE", "FamilySpec", "StaticGrid",
     "StaticOptions", "StaticSearchResult", "enumerate_grid", "family_grid",
     "registry_families", "search_static",
+    "CheckpointMismatchError", "NumericalDivergenceError", "RetryPolicy",
+    "StreamAbortedError", "StreamAggregates", "StreamConfig", "StreamReport",
+    "run_stream",
     "BatchedCMPPlant", "SweepResult", "baseline_ipc_batched", "run_sweep",
     "WORKLOADS", "random_mixes", "random_workloads",
 ]

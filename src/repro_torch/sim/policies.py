@@ -37,13 +37,16 @@ QOS_VIOLATION_GAIN = 8.0
 
 
 class UnknownManagerError(ValueError):
-    """An unregistered manager-family name reached a sweep entry point."""
+    """An unregistered manager-family name reached a sweep entry point;
+    ``valid`` lists the names the caller accepts (its ``extra`` names,
+    then the registered families)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, extra: Tuple[str, ...] = ()):
+        valid = list(extra) + manager_names()
         super().__init__(
-            f"unknown manager {name!r}; registered families: "
-            f"{manager_names()}")
+            f"unknown manager {name!r}; registered families: {valid}")
         self.name = name
+        self.valid = valid
 
 
 @dataclasses.dataclass
@@ -99,10 +102,13 @@ def get_family(name: str) -> PolicyFamily:
         raise UnknownManagerError(name) from None
 
 
-def validate_manager_names(names) -> None:
-    """Raise :class:`UnknownManagerError` on the first unregistered name."""
+def validate_manager_names(names, extra: Tuple[str, ...] = ()) -> None:
+    """Raise :class:`UnknownManagerError` on the first unregistered name;
+    ``extra`` admits caller-specific pseudo-families on top of the
+    registry."""
     for name in names:
-        get_family(name)
+        if name not in REGISTRY and name not in extra:
+            raise UnknownManagerError(name, tuple(extra))
 
 
 # --------------------------------------------------------------------- #

@@ -27,8 +27,10 @@ skipping): each bucket over its own slot count, the buckets sharing one
 slot loop, in which a slot evaluates only the buckets still running.  By
 the same argument the buckets equal a single stacked table bit for bit
 (``tests/test_torch_segment.py`` forces one bucket to compare).
-Single device only; sharding and the asynchronous dispatch of the JAX
-program are not ported yet.
+:func:`run_timelines_async` leaves the results on the device
+(:class:`PendingTimelines`, with a CUDA event on the card), which is what
+lets the streaming sweep generate the next chunk meanwhile.  Single
+device only; sharding is not ported yet.
 """
 from __future__ import annotations
 
@@ -256,7 +258,54 @@ def _length_buckets(lens: Sequence[int]) -> List[List[int]]:
     return buckets
 
 
+@dataclasses.dataclass
+class PendingTimelines:
+    """A stacked-timeline run whose results are still on the device.
+
+    ``device_results`` holds per spec a dict of ``(M, n)`` device tensors
+    (views into the stacked state), ``w_accs`` each spec's accumulated
+    weight.  On the card ``event`` is a CUDA event recorded after the
+    run's last operation on the current stream; nothing waits until
+    :meth:`block_until_ready` or :meth:`result`, so the caller can do host
+    work (generate the next chunk of a stream) while the card runs.
+    """
+
+    device_results: List[Dict[str, torch.Tensor]]
+    w_accs: List[float]
+    event: Optional["torch.cuda.Event"] = None
+    _stacked: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
+    _rows: List[int] = dataclasses.field(default_factory=list, repr=False)
+
+    def block_until_ready(self) -> "PendingTimelines":
+        if self.event is not None:
+            self.event.synchronize()
+        return self
+
+    def result(self) -> List[TimelineResult]:
+        """The one device-to-host copy, into :class:`TimelineResult`s."""
+        host = {k: v.cpu().numpy() for k, v in self._stacked.items()}
+        return [TimelineResult(
+            ipc_acc=host["ipc_acc"][k],
+            w_acc=w_acc,
+            cache_units=host["cache_units"][k].astype(np.int64),
+            bandwidth=host["bandwidth"][k],
+            prefetch_on=host["prefetch_on"][k],
+            active=host["active"][k])
+            for k, w_acc in zip(self._rows, self.w_accs)]
+
+
 def run_timelines(
+    params: Dict[str, torch.Tensor],
+    specs: Sequence[TimelineSpec],
+    **kwargs,
+) -> List[TimelineResult]:
+    """:func:`run_timelines_async` followed by its one host copy: one
+    :class:`TimelineResult` of host arrays per spec."""
+    return run_timelines_async(params, specs, **kwargs).result()
+
+
+def run_timelines_async(
     params: Dict[str, torch.Tensor],
     specs: Sequence[TimelineSpec],
     *,
@@ -269,7 +318,7 @@ def run_timelines(
     atd_decay=0.5,
     bandwidth_delay_decay=0.5,
     iters: int = FIXED_POINT_ITERS,
-) -> List[TimelineResult]:
+) -> PendingTimelines:
     """Run a whole manager set's timelines on the parameters' device.
 
     Args:
@@ -288,8 +337,8 @@ def run_timelines(
     launches once per slot on every bucket's reallocating rows.
 
     Returns:
-      One :class:`TimelineResult` of host arrays per spec; the results
-      come back to the host once, at the end.
+      A :class:`PendingTimelines` whose tensors stay on the device; its
+      ``result()`` brings them to the host once.
     """
     if not specs:
         raise ValueError("need at least one TimelineSpec")
@@ -488,19 +537,20 @@ def run_timelines(
             pf = torch.where(sample_on & ~is_cppf, decision, pf)
             off_ipc = torch.where(kind == SAMPLE_OFF, ipc, off_ipc)
 
-    host = {k: v.reshape(K, M, n).cpu().numpy() for k, v in
-            {"ipc_acc": ipc_acc, "cache_units": units, "bandwidth": bw,
-             "prefetch_on": pf, "active": active}.items()}
-    results: List[Optional[TimelineResult]] = [None] * K
-    for k, (i, table, only) in enumerate(zip(order, tables, accum)):
-        results[i] = TimelineResult(
-            ipc_acc=host["ipc_acc"][k],
-            w_acc=_weight(table, only),
-            cache_units=host["cache_units"][k].astype(np.int64),
-            bandwidth=host["bandwidth"][k],
-            prefetch_on=host["prefetch_on"][k],
-            active=host["active"][k])
-    return results
+    stacked = {k: v.reshape(K, M, n) for k, v in
+               {"ipc_acc": ipc_acc, "cache_units": units, "bandwidth": bw,
+                "prefetch_on": pf, "active": active}.items()}
+    # Spec i's rows sit at position order.index(i) of the bucketed stack.
+    rows = [order.index(i) for i in range(K)]
+    event = None
+    if dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    return PendingTimelines(
+        device_results=[{k: v[r] for k, v in stacked.items()}
+                        for r in rows],
+        w_accs=[_weight(tables[r], accum[r]) for r in rows],
+        event=event, _stacked=stacked, _rows=rows)
 
 
 def _weight(table, only: Optional[int]) -> float:

@@ -523,10 +523,45 @@ def _case_static_search(out: dict) -> None:
             out[f"{n_apps}_{seed}|{fam}|topk_index"] = res.topk_index[fam]
 
 
+def _case_stream(out: dict) -> None:
+    """The reference's streaming sweep in float64
+    (``tools/stream_golden.py::reference_run``) on the golden's ``tests``
+    case, healthy and under its fault plan: the aggregate tree and the
+    quarantined chunks of each run.  Also the checkpoints of the healthy
+    stream killed at chunk 2 (every chunk checkpointed), written next to
+    the output file; ``ckpt_dir`` names their directory."""
+    import importlib.util
+
+    from repro.runtime.faultinject import FaultPlan, InjectedProcessKill
+    from repro.sim import stream_sweep, workloads
+
+    path = SRC.parent / "tools" / "stream_golden.py"
+    spec = importlib.util.spec_from_file_location("stream_golden", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    args, plans = tool.CASES["tests"]
+    for run, plan in plans.items():
+        report = tool.reference_run(args, plan)
+        for key, a in report.aggregates.to_tree().items():
+            out[f"{run}|{key}"] = a
+        out[f"{run}|quarantined"] = np.array(
+            [c for c, _ in report.quarantined], dtype=np.int64)
+        out[f"{run}|retries"] = np.array(report.retries)
+    ckpt = Path(sys.argv[2]).resolve().parent / "stream_ck"
+    try:
+        stream_sweep.run_stream(
+            tool.stream_config(args, stream_sweep, workloads,
+                               checkpoint_dir=str(ckpt),
+                               checkpoint_every=1),
+            fault_plan=FaultPlan.single("kill", 2))
+    except InjectedProcessKill:
+        out["ckpt_dir"] = np.array(str(ckpt))
+
+
 CASES = {"lookahead": _case_lookahead, "memsys": _case_memsys,
          "controllers": _case_controllers, "sweep": _case_sweep,
          "planner": _case_planner, "grid": _case_grid, "plant": _case_plant,
-         "static_search": _case_static_search}
+         "static_search": _case_static_search, "stream": _case_stream}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the ``repro`` package, and the entry
+neither ``jax`` nor anything of the ``repro`` package (nor ``msgpack`` or
+``ml_dtypes``, which the reference's checkpoint needs), and the entry
 points refuse to fall back to the CPU when no card is present.
 
 Both checks run in a fresh interpreter: the first with ``jax``,
-``jaxlib`` and ``repro`` blocked on ``sys.meta_path`` (an import of them
-raises), the second with ``CUDA_VISIBLE_DEVICES`` empty, so it holds on a
-machine with a card too.
+``jaxlib``, ``repro``, ``msgpack`` and ``ml_dtypes`` blocked on
+``sys.meta_path`` (an import of them raises), the second with
+``CUDA_VISIBLE_DEVICES`` empty, so it holds on a machine with a card too.
 """
 import os
 import subprocess
@@ -18,10 +19,11 @@ BLOCKED_IMPORTS = r'''
 import importlib, importlib.util, pkgutil, sys
 
 class Blocker:
-    """Refuse jax, jaxlib and the reference package (not repro_torch)."""
+    """Refuse jax, jaxlib, the reference package (not repro_torch) and the
+    reference checkpoint's msgpack and ml_dtypes."""
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "repro"):
+        if top in ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes"):
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -29,14 +31,17 @@ sys.meta_path.insert(0, Blocker())
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
-assert {"repro_torch.numpy_order", "repro_torch.sim.static_search"} <= set(
-    names), names
+assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
+        "repro_torch.sim.stream_sweep", "repro_torch.runtime.fault",
+        "repro_torch.runtime.faultinject", "repro_torch.checkpoint.ckpt",
+        "repro_torch.checkpoint._msgpack"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = [m for m in sys.modules
-          if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+          if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                 "ml_dtypes")]
 assert not leaked, leaked
 print(len(names))
 '''
@@ -48,6 +53,7 @@ from repro_torch.core.cache_controller import lookahead_allocate
 from repro_torch.sim import random_mixes, run_all_managers, run_sweep
 from repro_torch.sim.characterization import sensitivity_table
 from repro_torch.sim.static_search import search_static
+from repro_torch.sim.stream_sweep import StreamConfig, run_stream
 from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
                                  run_fused_schedule)
 from repro_torch.train import make_stream_plant_model
@@ -63,7 +69,9 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
                                         total_ms=10.0),
              lambda: FusedTrainingPlant(4, 48, 64.0, step_model),
              lambda: TrainingPlant(4, 48, 64.0, step_fn),
-             lambda: search_static([["lbm", "mcf"]])):
+             lambda: search_static([["lbm", "mcf"]]),
+             lambda: run_stream(StreamConfig(n_mixes=4, chunk_size=4,
+                                             managers=("CBP",)))):
     try:
         call()
     except RuntimeError as exc:
