@@ -116,6 +116,29 @@ before it and read just after:
              coverage, retries), the float aggregates within rtol 1e-9;
              every healthy run at coverage 1.0 with no retry.
 
+14. models — the model stack (``repro_torch.models``,
+             ``repro_torch.configs``), which calls no hand-written kernel
+             (neither do the reference's models): (a) every smoke config
+             built from a seed on the CPU and copied to the card, float32
+             with TF32 off: loss, prefill and 12 decode steps (qwen3-8b's
+             also with a per-row ``cur_len``) within rtol 1e-4 and atol
+             1e-5 of the port's CPU run, or 4 times the CPU run's own
+             one-ulp spread where that passes 1e-5 (zamba2-7b, ROADMAP R4);
+             MoE routing and the kept-slot table exactly equal, also at
+             capacity factor 0.5 where every expert overflows (R3); (b)
+             qwen3-8b at its full config (bf16, 36 layers): prefill of 4 x
+             2,048 tokens, the cache filled with the prompt's K/V, the
+             last prompt token decoded at position 2,047 against the
+             prefill, 32 greedy steps against a cache of 2,080 positions
+             (8 more under the profiler: the card's busy share), decode
+             against the forward on the first 16 positions; walls,
+             tokens/s and peak memory; (c) the other nine at full width
+             cut in depth (2 layers, zamba2-7b 7, whisper-tiny whole;
+             mamba2 and zamba2 in SSD chunks of 16, R5): prefill and 8
+             decode steps, finite, decode against the forward (bf16; MoE
+             also in float32, zamba2-7b in float32 alone).  The launch
+             counts stay 0.
+
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
 on-chip memory budget among a kernel's tiles, and the four kernels run
@@ -154,11 +177,11 @@ Every phase prints one JSON line with the card's name and power limit,
 and a last ``done`` line gives the script's seconds; then comes the
 ``kernels`` line (every kernel's launches on its path, error, times and
 bound; the greedy's at the bucketed sweep's own boundary inputs, with its
-launches on every path and the shapes of every path's inputs it was held
-to).  Any failed check exits non-zero before the last line, which is
-``{"ok": true, "device": {...}}`` on success.  Without a CUDA card, or
-outside a checkout of the repository, it exits non-zero and prints no
-result.
+launches on every path, 0 in phase 14, and the shapes of every path's
+inputs it was held to).  Any failed check exits non-zero before the last
+line, which is ``{"ok": true, "device": {...}}`` on success.  Without a
+CUDA card, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -667,23 +690,23 @@ def timed_sweep(mixes, **kw):
     return res, time.perf_counter() - t0, launch_counts()
 
 
-def profile_sweep(mixes) -> dict:
-    """One extra, profiled sweep: the device time of every CUDA kernel
-    (and copy) it ran, summed once each, the greedy kernel's part, and the
-    kernels that took the most.  Kernel durations are device-side, so they
-    hold for the unprofiled run; the profiled wall does not (tracing slows
-    the host).  Values are None where the profiler saw no device events."""
+def device_profile(fn, kernel: str = "") -> dict:
+    """Run ``fn`` once under the profiler: the device time of every CUDA
+    kernel (and copy) it ran, summed once each, the part of kernels whose
+    name holds ``kernel``, and the kernels that took the most.  Kernel
+    durations are device-side, so they hold for an unprofiled run; the
+    profiled wall does not (tracing slows the host).  Values are None
+    where the profiler saw no device events."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.sim import run_sweep
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_sweep(mixes, total_ms=TOTAL_MS)
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -691,12 +714,23 @@ def profile_sweep(mixes) -> dict:
     for e in dev:
         by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e6
     device_s = sum(by_name.values())
-    greedy_s = sum(v for k, v in by_name.items() if "lookahead_greedy" in k)
+    part_s = sum(v for k, v in by_name.items() if kernel and kernel in k)
     return {"profiled_wall_s": wall,
             "device_events": len(dev),
             "device_s": device_s if dev else None,
-            "greedy_device_s": greedy_s if dev else None,
+            "part_device_s": part_s if dev else None,
             "top_device_s": [[k, v] for k, v in by_name.most_common(5)]}
+
+
+def profile_sweep(mixes) -> dict:
+    """One extra, profiled sweep (:func:`device_profile`), the greedy
+    kernel's part apart."""
+    from repro_torch.sim import run_sweep
+
+    rec = device_profile(lambda: run_sweep(mixes, total_ms=TOTAL_MS),
+                         "lookahead_greedy")
+    rec["greedy_device_s"] = rec.pop("part_device_s")
+    return rec
 
 
 def bucket_comparison(mixes, bucketed, counts):
@@ -1608,6 +1642,460 @@ def stream_phase(card: str) -> int:
 
 
 # --------------------------------------------------------------------- #
+# phase 14: the model stack (repro_torch.models, repro_torch.configs)
+# --------------------------------------------------------------------- #
+
+#: (a) the card against the port's CPU run, smoke configs in float32 with
+#: TF32 off: the CPU tests' bound against the JAX package, unless the CPU
+#: run's own spread (its distance to itself with every parameter one ulp
+#: up) passes it (ROADMAP R4: zamba2-7b alone).
+MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
+#: Where the spread passes MODEL_ATOL (zamba2-7b), the bound is this many
+#: spreads: the card's float32 ops differ from the CPU's by a few ulps
+#: each, the spread's nudge moves each parameter by one.
+R4_FACTOR = 4
+SMOKE_B, SMOKE_S, SMOKE_T = 2, 32, 12
+#: Decode against the full forward: float32 at ``test_decode_parity``'s
+#: 2e-3; bfloat16 at the bound PERF.md §6 states, set before the model
+#: stack first ran on a card: max and mean |decode - forward| over the
+#: logits, and the share of positions whose argmax agrees.
+PARITY_F32 = 2e-3
+BF16_MAX, BF16_MEAN, ARGMAX_FLOOR = 0.5, 0.05, 0.8
+#: (b) qwen3-8b at its full config: 4 requests of 2,048 prompt tokens,
+#: 32 greedy steps against a cache of 2,080 positions, decode against
+#: the forward on the first 16 positions.
+QWEN_B, QWEN_PROMPT, QWEN_STEPS, QWEN_PARITY = 4, 2048, 32, 16
+#: Greedy steps run once more under the profiler: device time a step
+#: over the unprofiled wall a step is the card's busy share in decode.
+QWEN_PROFILED = 8
+#: (c) the other nine at full width, cut in depth only: 2 layers, zamba2-7b
+#: 7 (two shared-attention sites), whisper-tiny whole; 2 requests of 512
+#: tokens (whisper: 1,500 frames and 448 tokens), 8 decode steps.
+FULL_LAYERS = {"zamba2-7b": 7, "whisper-tiny": None}
+FULL_B, FULL_PROMPT, FULL_STEPS = 2, 512, 8
+#: mamba2-1.3b and zamba2-7b scan in chunks of 16 (their smoke configs'),
+#: not 128: the reference's chunked SSD takes exp(cs_i - cs_j) above the
+#: diagonal before its causal mask, which overflows once a chunk's decay
+#: passes e^88, and inf x 0 is NaN (ROADMAP R5; the port does the same).
+#: The chunk length is a numerics setting: the scan is exact in any.
+FULL_SSM_CHUNK = 16
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+#: Where phase 14 runs its models (a CPU rehearsal sets "cpu").
+DEVICE = "cuda"
+
+
+def model_inputs(cfg, b: int, s: int, device, seed: int = 0,
+                 frames: int = 0) -> dict:
+    """A batch drawn with numpy: tokens and next-token labels (the last
+    masked), frames for the encoder-decoder, embeddings for stub
+    frontends, in the parameter dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import torch_dtype
+
+    rng = np.random.default_rng(seed)
+    dt = torch_dtype(cfg.param_dtype)
+    toks = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = np.concatenate([toks[:, 1:], np.full((b, 1), -1)], 1)
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((b, frames or s, cfg.d_model))
+    if cfg.frontend in ("audio", "patch") and cfg.family != "encdec":
+        batch = {"embeddings": rng.standard_normal((b, s, cfg.d_model)),
+                 "labels": labels}
+    return {k: torch.as_tensor(v, device=device,
+                               dtype=dt if v.dtype.kind == "f" else None)
+            for k, v in batch.items()}
+
+
+def prepared_cache(model, batch, max_len: int, cache_dtype):
+    """An empty decode cache for the batch; whisper's holds the cross K/V
+    of the encoded frames (``encdec.cross_kv``), and at least their
+    positions."""
+    import torch
+    from repro_torch.models import encdec
+
+    cfg = model.cfg
+    steps = batch["embeddings" if "embeddings" in batch else "tokens"]
+    if cfg.family != "encdec":
+        return model.init_cache(steps.shape[0], max_len, dtype=cache_dtype)
+    m = batch["frames"].shape[1]
+    cache = model.init_cache(steps.shape[0], max(max_len, m),
+                             dtype=cache_dtype)
+    hidden = encdec.encode(model.params, cfg, batch["frames"])
+    xk, xv = encdec.cross_kv(model.params, cfg, hidden)
+    cache["xk"][:, :, :m], cache["xv"][:, :, :m] = xk, xv
+    cache["enc_len"] = torch.tensor(m, dtype=torch.int32, device=model.device)
+    return cache
+
+
+def run_steps(model, batch, cache, n: int, positions=None):
+    """Logits (B, n, V) of the batch's first ``n`` tokens (or embeddings)
+    fed one at a time; ``positions`` per step (default 0 .. n-1)."""
+    import torch
+
+    steps = batch["embeddings" if "embeddings" in batch else "tokens"]
+    outs = []
+    for i in range(n):
+        pos = i if positions is None else positions[i]
+        logits, cache = model.decode_step(cache, steps[:, i:i + 1], pos)
+        outs.append(logits[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def decode_steps(model, batch, n: int, max_len: int, cache_dtype,
+                 positions=None):
+    return run_steps(model, batch,
+                     prepared_cache(model, batch, max_len, cache_dtype),
+                     n, positions)
+
+
+def nudged(model):
+    """The model with every float parameter one ulp up."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_map
+
+    return Model(model.cfg, tree_map(
+        lambda t: torch.nextafter(t, torch.full_like(t, float("inf")))
+        if t.is_floating_point() else t.clone(), model.params))
+
+
+def smoke_run(model, batch, vector: bool) -> dict:
+    """Loss, prefill and 12 decode steps (and, with ``vector``, the same
+    steps with a per-row ``cur_len``, row 1 two positions ahead)."""
+    import torch
+
+    out = {"loss": model.loss(batch), "prefill": model.prefill(batch),
+           "decode": decode_steps(model, batch, SMOKE_T, SMOKE_T + 4,
+                                  torch.float32)}
+    if vector:
+        out["decode_vector"] = decode_steps(
+            model, batch, SMOKE_T, SMOKE_T + 4, torch.float32,
+            [[i, i + 2] for i in range(SMOKE_T)])
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def moe_routes(model, device, seed: int = 3) -> dict:
+    """Layer 0's routing of a seeded input at the config's capacity and at
+    capacity factor 0.5 (every expert overflows: ROADMAP R3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(1, SMOKE_B * SMOKE_S, cfg.d_model, generator=g)
+    lp = {k: v.to(device) for k, v in L.layer(
+        model.params["layers"]["moe"], 0).items()}
+    out = {}
+    for cf in (cfg.capacity_factor, 0.5):
+        route = transformer.moe_route(
+            lp, dataclasses.replace(cfg, capacity_factor=cf), x.to(device))
+        out[cf] = (route.experts.cpu(), route.slots.cpu())
+    return out
+
+
+def models_smoke(card: str) -> dict:
+    """(a) Every smoke config built from a seed on the CPU and copied to
+    the card: the card's loss, prefill and decode equal the CPU's within
+    MODEL_RTOL and the larger of MODEL_ATOL and the CPU's own one-ulp
+    spread; MoE routing and kept slots exactly equal."""
+    import copy
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    worst = {}
+    for name in configs.names():
+        cfg = configs.get_smoke(name)
+        cpu = build(cfg, device="cpu", seed=0)
+        card_model = copy.deepcopy(cpu).to(DEVICE)
+        vector = name == "qwen3-8b"
+        want = smoke_run(cpu, model_inputs(cfg, SMOKE_B, SMOKE_S, "cpu"),
+                         vector)
+        spread = {k: float((v - want[k]).abs().max()) for k, v in smoke_run(
+            nudged(cpu), model_inputs(cfg, SMOKE_B, SMOKE_S, "cpu"),
+            vector).items()}
+        got = smoke_run(card_model,
+                        model_inputs(cfg, SMOKE_B, SMOKE_S, DEVICE), vector)
+        errs = {}
+        for key, w in want.items():
+            atol = (MODEL_ATOL if spread[key] <= MODEL_ATOL
+                    else R4_FACTOR * spread[key])
+            excess = float(((got[key] - w).abs()
+                            - MODEL_RTOL * w.abs()).max())
+            errs[key] = float((got[key] - w).abs().max())
+            check(excess <= atol, f"models {name} {key}: card vs CPU "
+                  f"{errs[key]:.3g} past atol {atol:.3g} + rtol "
+                  f"{MODEL_RTOL}")
+        routes = {}
+        if cfg.n_experts:
+            for (cf, (e_cpu, s_cpu)), (e_gpu, s_gpu) in zip(
+                    moe_routes(cpu, "cpu").items(),
+                    moe_routes(cpu, DEVICE).values()):
+                check(torch.equal(e_cpu, e_gpu) and torch.equal(s_cpu, s_gpu),
+                      f"models {name}: card routing differs at cf {cf}")
+                counts = torch.bincount(e_cpu.reshape(-1),
+                                        minlength=cfg.n_experts)
+                routes[cf] = {"capacity": s_cpu.shape[-1],
+                              "overflowing_experts":
+                                  int((counts > s_cpu.shape[-1]).sum())}
+            check(routes[0.5]["overflowing_experts"] > 0,
+                  f"models {name}: no expert overflows at cf 0.5")
+        worst[name] = errs
+        emit(card, phase="models", case="smoke", config=name,
+             max_abs_card_vs_cpu=errs, cpu_one_ulp_spread=spread,
+             rtol=MODEL_RTOL, atol=MODEL_ATOL, moe_routes_equal=routes)
+        del card_model
+    return worst
+
+
+def parity(dec, fwd, dtype) -> dict:
+    """Decode against the forward: max and mean |diff|, argmax agreement;
+    raises past the bound of ``dtype``."""
+    import torch
+
+    diff = (dec.float() - fwd.float()).abs()
+    rec = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+           "argmax_agree": float((dec.argmax(-1) == fwd.argmax(-1))
+                                 .float().mean()),
+           "positions": int(dec.shape[0] * dec.shape[1])}
+    if dtype == torch.float32:
+        rec["ok"] = bool((diff <= PARITY_F32 * (1 + fwd.float().abs()))
+                         .all())
+    else:
+        rec["ok"] = (rec["max_abs"] <= BF16_MAX
+                     and rec["mean_abs"] <= BF16_MEAN
+                     and rec["argmax_agree"] >= ARGMAX_FLOOR)
+    return rec
+
+
+def fill_kv(model, tokens, cache) -> None:
+    """Write the prompt's rotated K and V of every layer into the cache's
+    first positions, from the forward's own layer inputs (what decode
+    steps over the prompt would write): the cache the greedy steps
+    continue from."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg, params = model.cfg, model.params
+    x = T.embed(params, cfg, tokens)
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = L.layer(params["layers"], i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        _, k, v = T._project_qkv(lp["attn"], cfg, h)
+        cache["k"][i, :, :s] = L.apply_rope(k, positions, cfg.rope_theta)
+        cache["v"][i, :, :s] = v
+        x = T._layer(lp, cfg, x, positions)
+
+
+def synced_wall(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def weight_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def qwen_full(card: str) -> dict:
+    """(b) qwen3-8b at its full config on the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    cfg = configs.get("qwen3-8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = synced_wall(lambda: build(cfg, DEVICE, seed=0))
+    batch = model_inputs(cfg, QWEN_B, QWEN_PROMPT, DEVICE, seed=1)
+    toks = batch["tokens"]
+    prefill, cold_s = synced_wall(lambda: model.prefill(batch))
+    prefill, warm_s = synced_wall(lambda: model.prefill(batch))
+    check(bool(torch.isfinite(prefill).all()), "qwen3-8b prefill not finite")
+    max_len = QWEN_PROMPT + QWEN_STEPS
+    cache = model.init_cache(QWEN_B, max_len)
+    _, fill_s = synced_wall(
+        lambda: fill_kv(model, toks[:, :QWEN_PROMPT - 1], cache))
+    # the prompt's last token at position 2047 reproduces the prefill
+    first, cache = model.decode_step(cache, toks[:, -1:], QWEN_PROMPT - 1)
+    long_ctx = parity(first[:, :1], prefill, torch.bfloat16)
+
+    def greedy(n: int):
+        """``n`` greedy steps from the cache after position 2047 (decode
+        is functional: ``cache`` itself stays as it is)."""
+        c, tok, out = cache, first[:, 0].argmax(-1, keepdim=True), []
+        for i in range(n):
+            logits, c = model.decode_step(c, tok, QWEN_PROMPT + i)
+            tok = logits[:, 0].argmax(-1, keepdim=True)
+            out.append(logits)
+        return torch.cat(out, dim=1)
+
+    steps, decode_s = synced_wall(lambda: greedy(QWEN_STEPS))
+    check(bool(torch.isfinite(steps).all()), "qwen3-8b decode not finite")
+    prof = device_profile(lambda: greedy(QWEN_PROFILED))
+    prof["busy_share"] = (prof["device_s"] / (QWEN_PROFILED * decode_s
+                                              / QWEN_STEPS)
+                          if prof["device_s"] else None)
+    fwd = model.logits({"tokens": toks[:, :QWEN_PARITY]})
+    dec = decode_steps(model, {"tokens": toks[:, :QWEN_PARITY]},
+                       QWEN_PARITY, max_len, torch.bfloat16)
+    rec = parity(dec, fwd, torch.bfloat16)
+    check(rec["ok"], f"qwen3-8b decode vs forward: {rec}")
+    check(long_ctx["max_abs"] <= BF16_MAX
+          and long_ctx["mean_abs"] <= BF16_MEAN,
+          f"qwen3-8b decode at {QWEN_PROMPT - 1} vs prefill: {long_ctx}")
+    out = {"config": cfg.name, "param_dtype": cfg.param_dtype,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "padded_vocab": cfg.padded_vocab,
+           "weight_bytes": weight_bytes(model), "build_s": build_s,
+           "batch": QWEN_B, "prompt": QWEN_PROMPT,
+           "prefill_cold_s": cold_s, "prefill_warm_s": warm_s,
+           "prefill_tokens_per_s": QWEN_B * QWEN_PROMPT / warm_s,
+           "fill_kv_s": fill_s, "decode_steps": QWEN_STEPS,
+           "cache_positions": max_len, "decode_wall_s": decode_s,
+           "decode_ms_per_step": 1e3 * decode_s / QWEN_STEPS,
+           "decode_tokens_per_s": QWEN_B * QWEN_STEPS / decode_s,
+           "decode_profile": prof,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "decode_vs_forward": rec, "decode_at_2047_vs_prefill": long_ctx,
+           "tolerance": {"max_abs": BF16_MAX, "mean_abs": BF16_MEAN,
+                         "argmax_floor": ARGMAX_FLOOR}}
+    emit(card, phase="models", case="qwen3-8b_full", **out)
+    del model, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def full_width(card: str, name: str) -> dict:
+    """(c) One full-width config cut in depth: prefill, 8 timed decode
+    steps, and decode against the forward over those 8 tokens in bf16.
+    The dense, VLM and SSM configs take the bf16 gate whole.  MoE (at the
+    drop-free capacity E / k, as the parity test) flips a near-tied expert
+    where bf16 rounding differs, so its bf16 run is held to the mean and
+    argmax only, and the same weights in float32 to 2e-3; zamba2-7b's bf16
+    decode departs from its forward in the reference too (R4), so it is
+    held in float32 alone.  Whisper at position 0, its decode's only
+    position with the forward's sinusoid."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import Model, build
+
+    cfg = configs.get(name)
+    layers = FULL_LAYERS.get(name, 2)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.ssm_state:
+        cfg = dataclasses.replace(cfg, ssm_chunk=FULL_SSM_CHUNK)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = synced_wall(lambda: build(cfg, DEVICE, seed=0))
+    wbytes = weight_bytes(model)
+    encdec = cfg.family == "encdec"
+    s = WHISPER_TOKENS if encdec else FULL_PROMPT
+    batch = model_inputs(cfg, FULL_B, s, DEVICE, seed=2,
+                         frames=WHISPER_FRAMES if encdec else 0)
+    prefill, cold_s = synced_wall(lambda: model.prefill(batch))
+    prefill, warm_s = synced_wall(lambda: model.prefill(batch))
+    check(bool(torch.isfinite(prefill).all()), f"{name} prefill not finite")
+    head = {k: v[:, :FULL_STEPS] if k != "frames" else v
+            for k, v in batch.items()}
+    cache = prepared_cache(model, head, FULL_STEPS, torch.bfloat16)
+    steps, decode_s = synced_wall(lambda: run_steps(model, head, cache,
+                                                    FULL_STEPS))
+    check(bool(torch.isfinite(steps).all()), f"{name} decode not finite")
+    peak = torch.cuda.max_memory_allocated()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.padded_experts / cfg.top_k)
+
+    def decode_vs_forward(m, inputs, dtype):
+        dec = decode_steps(m, inputs, FULL_STEPS, FULL_STEPS, dtype)
+        if encdec:
+            return parity(dec[:, :1], m.logits(
+                {"frames": inputs["frames"],
+                 "tokens": inputs["tokens"][:, :1]}), dtype)
+        return parity(dec, m.logits(inputs), dtype)
+
+    rec = {"bfloat16": decode_vs_forward(Model(cfg, model.params), head,
+                                         torch.bfloat16)}
+    if cfg.n_experts or name == "zamba2-7b":
+        if cfg.n_experts:
+            bf = rec["bfloat16"]
+            check(bf["mean_abs"] <= BF16_MEAN
+                  and bf["argmax_agree"] >= ARGMAX_FLOOR,
+                  f"{name} bf16 decode vs forward: {bf}")
+        model.float()        # in place: the bf16 weights go
+        f32 = Model(dataclasses.replace(cfg, param_dtype="float32"),
+                    model.params)
+        rec["float32"] = decode_vs_forward(
+            f32, {k: v.float() if v.is_floating_point() else v
+                  for k, v in head.items()}, torch.float32)
+        check(rec["float32"]["ok"], f"{name} f32 decode vs forward: {rec}")
+        del f32
+    else:
+        check(rec["bfloat16"]["ok"], f"{name} decode vs forward: {rec}")
+    out = {"config": name, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+           "ssm_chunk": cfg.ssm_chunk if cfg.ssm_state else None,
+           "depth_cut_from": configs.get(name).n_layers,
+           "weight_bytes": wbytes,
+           "build_s": build_s, "batch": FULL_B, "prompt": s,
+           "frames": WHISPER_FRAMES if encdec else None,
+           "prefill_cold_s": cold_s, "prefill_warm_s": warm_s,
+           "prefill_tokens_per_s": FULL_B * s / warm_s,
+           "decode_steps": FULL_STEPS, "decode_wall_s": decode_s,
+           "decode_tokens_per_s": FULL_B * FULL_STEPS / decode_s,
+           "peak_bytes": peak,
+           "peak_bytes_with_checks": torch.cuda.max_memory_allocated(),
+           "decode_vs_forward": rec}
+    emit(card, phase="models", case="full_width", **out)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def models_phase(card: str) -> dict:
+    """Phase 14, with the launch counts reset just before it and read just
+    after: the model stack launches no hand-written kernel (the reference
+    models call none)."""
+    from repro_torch import configs
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    smoke = models_smoke(card)
+    qwen = qwen_full(card)
+    full = [full_width(card, name) for name in configs.names()
+            if name != "qwen3-8b"]
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"models: a hand-written kernel launched: {counts}")
+    seconds = time.perf_counter() - t0
+    emit(card, phase="models", case="summary", seconds=seconds,
+         launches=counts, smoke_configs=len(smoke),
+         qwen3_8b_prefill_tokens_per_s=qwen["prefill_tokens_per_s"],
+         qwen3_8b_decode_tokens_per_s=qwen["decode_tokens_per_s"],
+         qwen3_8b_peak_bytes=qwen["peak_bytes"],
+         full_width={r["config"]: r["peak_bytes"] for r in full})
+    return counts
+
+
+# --------------------------------------------------------------------- #
 # phases 5-6: the kernel-level path (UCP block planner + four kernels)
 # --------------------------------------------------------------------- #
 
@@ -2119,6 +2607,7 @@ def main() -> int:
         launches_plant = plant_phase(card)
         launches_static = static_phase(card)
         launches_stream = stream_phase(card)
+        launches_models = models_phase(card)
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -2149,6 +2638,7 @@ def main() -> int:
             "launches_plant": launches_plant,
             "launches_static": launches_static,
             "launches_stream": launches_stream,
+            "launches_models": launches_models["lookahead_greedy"],
         }, *path_rows]
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,7 +34,14 @@ names = [m.name for m in pkgutil.walk_packages(
 assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
         "repro_torch.sim.stream_sweep", "repro_torch.runtime.fault",
         "repro_torch.runtime.faultinject", "repro_torch.checkpoint.ckpt",
-        "repro_torch.checkpoint._msgpack"} <= set(names), names
+        "repro_torch.checkpoint._msgpack", "repro_torch.configs",
+        "repro_torch.configs.qwen3_8b", "repro_torch.configs.zamba2_7b",
+        "repro_torch.models", "repro_torch.models.config",
+        "repro_torch.models.layers", "repro_torch.models.attention",
+        "repro_torch.models.transformer", "repro_torch.models.ssm",
+        "repro_torch.models.hybrid", "repro_torch.models.encdec",
+        "repro_torch.models.model", "repro_torch.models.convert"
+        } <= set(names), names
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
@@ -57,6 +64,8 @@ from repro_torch.sim.stream_sweep import StreamConfig, run_stream
 from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
                                  run_fused_schedule)
 from repro_torch.train import make_stream_plant_model
+from repro_torch import configs
+from repro_torch.models import build, params_from_jax
 import numpy as np
 step_fn, step_model = make_stream_plant_model(4, 48, 64.0, device="cpu")
 for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
@@ -71,7 +80,9 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: TrainingPlant(4, 48, 64.0, step_fn),
              lambda: search_static([["lbm", "mcf"]]),
              lambda: run_stream(StreamConfig(n_mixes=4, chunk_size=4,
-                                             managers=("CBP",)))):
+                                             managers=("CBP",))),
+             lambda: build(configs.get_smoke("qwen3-8b")),
+             lambda: params_from_jax(configs.get_smoke("mamba2-1.3b"), {})):
     try:
         call()
     except RuntimeError as exc:
