@@ -18,8 +18,10 @@ It drives the port's main path, the paper's Table-3 sweep
              4096-mix sweep in buckets and as one table, the segment
              backend, each Fig. 12 grid (U=512 among them) and the scalar
              plant on w1 and on the Fig. 1 pair (B=1, n=2, U=64), the
-             training plant's first boundary (B=1, n=12, U=96) and the
-             streaming sweep's first chunk at full width (B=512, n=16):
+             training plant's first boundary (B=1, n=12, U=96), the
+             streaming sweep's first chunk at full width (B=512, n=16) and
+             the serving device engine's first reconfiguration at phase
+             15(b)'s configuration (B=1, n=4, U=256):
              ``alloc`` and ``balance`` must be exactly equal.  Prints the
              kernel's and the plain version's times and the kernel's bound.
 3. sweep   — all 14 managers over ``random_mixes(32, 16, seed=1)``, 100 ms:
@@ -138,6 +140,30 @@ before it and read just after:
              decode steps, finite, decode against the forward (bf16; MoE
              also in float32, zamba2-7b in float32 alone).  The launch
              counts stay 0.
+15. serve  — the serving path (``repro_torch.serving``): (a) the fixtures
+             of the reference's ``tests/test_serving_jax.py`` with the
+             qwen3-8b smoke model (float32, built on the CPU and moved):
+             the host ``ServingEngine`` and ``GraphServingEngine`` (one and
+             two groups) on the card equal the port's CPU run in every
+             output, tokens included; the device engine's interval program
+             replays once an interval, its reconfiguration program once a
+             reconfiguration, and the greedy launches once per
+             reconfiguration (+1 in the warm-up before that program's
+             capture); (b) qwen3-8b at its full config (bf16, 36 layers)
+             behind both engines: 4 streams, 16 slots, 512 positions,
+             pages of 16 tokens, 256 pages, a reconfiguration every 32
+             steps, 32 requests (stream 0 a shared 48-token prefix): the
+             host engine once, the device engine cold (with its captures)
+             and warm, schedules equal to the host engine's (slot shares
+             within 1e-6: float32 against float64), tokens equal under the
+             token rule (``tests/_torch_serving_ref.py``: a request may
+             part from the host engine's tokens only at a step where the
+             host's top-2 logit gap is at most 1e-5 + 1e-4 |top|), every
+             partition summing to 256 above its floor; walls, tokens/s,
+             ms a step, capture seconds, the card's busy share over one
+             profiled warm interval, peak memory and the idle tail steps;
+             (c) the device engine with CBP off at full width:
+             no reconfiguration, no greedy launch.
 
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
@@ -177,8 +203,8 @@ Every phase prints one JSON line with the card's name and power limit,
 and a last ``done`` line gives the script's seconds; then comes the
 ``kernels`` line (every kernel's launches on its path, error, times and
 bound; the greedy's at the bucketed sweep's own boundary inputs, with its
-launches on every path, 0 in phase 14, and the shapes of every path's
-inputs it was held to).  Any failed check exits non-zero before the last
+launches on every path, 0 in phase 14, phase 15's as ``launches_serve``,
+and the shapes of every path's inputs it was held to).  Any failed check exits non-zero before the last
 line, which is ``{"ok": true, "device": {...}}`` on success.  Without a
 CUDA card, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -495,6 +521,7 @@ def path_captures():
             config=fig1),
         "training_plant": training_plant_run,
         "stream": stream_head_step,
+        "serve": serve_first_boundary,
     })
     return cases
 
@@ -2096,6 +2123,328 @@ def models_phase(card: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase 15: the serving path
+# --------------------------------------------------------------------- #
+
+#: (b) qwen3-8b at its full config behind both serving engines: 4
+#: streams, 16 slots, 512 cache positions, pages of 16 tokens, 256 pages
+#: (the sweep's U), a reconfiguration every 32 steps; 32 requests from
+#: ``default_rng(0)`` (:func:`serve_requests`).
+SERVE_STREAMS, SERVE_SLOTS, SERVE_MAX_LEN = 4, 16, 512
+SERVE_PAGE_TOKENS, SERVE_PAGES, SERVE_INTERVAL = 16, 256, 32
+SERVE_REQUESTS, SERVE_HOT_PREFIX = 32, 48
+SERVE_MAX_STEPS = 10_000
+#: slot_share is float32 in the device engine, float64 in the host one.
+SERVE_SHARE_RTOL = 1e-6
+
+
+def on_card() -> bool:
+    return DEVICE == "cuda"
+
+
+def serve_ref():
+    """``tests/_torch_serving_ref.py`` (JAX-free at import): the reference
+    test's fixtures, the margin recorder and the token rule."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_serving_ref
+
+    return _torch_serving_ref
+
+
+def serve_config():
+    from repro_torch.serving import EngineConfig
+
+    return EngineConfig(
+        batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+        page_tokens=SERVE_PAGE_TOKENS, total_pages=SERVE_PAGES,
+        reconfig_every_steps=SERVE_INTERVAL)
+
+
+def serve_requests(vocab: int):
+    """32 requests, stream ``i % 4``: stream 0 a shared 48-token hot
+    prefix and 16 tokens of its own, streams 1-3 unique prompts of 16-128
+    tokens; 16-48 new tokens each.  Lengths come from one generator and
+    tokens from another, so the schedule does not depend on ``vocab``
+    (there is no end-of-sequence token: the schedule depends on lengths
+    alone)."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng, tok = np.random.default_rng(0), np.random.default_rng(1)
+    hot = tok.integers(0, vocab, SERVE_HOT_PREFIX)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        stream = i % SERVE_STREAMS
+        n = 16 if stream == 0 else int(rng.integers(16, 129))
+        prompt = tok.integers(0, vocab, n)
+        if stream == 0:
+            prompt = np.concatenate([hot, prompt])
+        reqs.append(Request(stream, prompt.astype(np.int32),
+                            int(rng.integers(16, 49))))
+    return reqs
+
+
+def serve_first_boundary():
+    """The device engine's greedy inputs at its first reconfiguration, at
+    phase 15(b)'s engine configuration and requests (B = 1, n = 4, U =
+    256): they depend on the schedule alone, so the qwen3-8b smoke model
+    (built on the CPU and moved) gives the full config's."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.serving import GraphServingEngine
+
+    cfg = configs.get_smoke("qwen3-8b")
+    model = build(cfg, device="cpu", seed=0).to(DEVICE)
+    GraphServingEngine(model, SERVE_STREAMS, serve_config(),
+                       device=DEVICE).run(serve_requests(cfg.vocab_size))
+
+
+def serve_schedule(eng, reqs) -> dict:
+    """What both engines decide, token values aside."""
+    import numpy as np
+
+    return {"steps": eng.steps, "reconfigs": eng.reconfigs,
+            "queue_wait": np.asarray(eng.queue_wait, np.float64),
+            "slot_share": np.asarray(eng.slot_share, np.float64),
+            "tokens_done": np.asarray(eng.tokens_done, np.float64),
+            "lengths": [len(r.generated) for r in reqs]}
+
+
+def serve_outputs(eng, reqs) -> dict:
+    """Every output of a run: the schedule, tokens and, for the host
+    engine, the pool; for the device engine, its coarse pool."""
+    import dataclasses
+
+    import numpy as np
+
+    out = {**serve_schedule(eng, reqs), "tokens": [r.generated for r in reqs]}
+    if hasattr(eng, "pool"):
+        out.update(partition=eng.pool.partition.tolist(),
+                   occupancy=eng.pool.occupancy().tolist(),
+                   readahead=np.asarray(eng.readahead).tolist(),
+                   stats=[dataclasses.astuple(s) for s in eng.pool.stats])
+    else:
+        out.update({k: np.asarray(getattr(eng, k)).tolist() for k in (
+            "intervals", "partition", "occupancy", "readahead", "evictions",
+            "demand_hits", "demand_misses", "prefetch_hits",
+            "prefetch_misses", "idle_steps")})
+    return out
+
+
+def differing(a: dict, b: dict) -> list:
+    """Keys whose values differ (arrays compared exactly)."""
+    import numpy as np
+
+    return [k for k in a if not (np.array_equal(a[k], b[k])
+                                 if isinstance(a[k], np.ndarray)
+                                 else a[k] == b[k])]
+
+
+def counted(fn):
+    """``fn()`` and the launches it added to each counter (nonzero)."""
+    from repro_torch.core.dispatch import launch_counts
+
+    before = launch_counts()
+    out = fn()
+    return out, {k: v - before[k] for k, v in launch_counts().items()
+                 if v != before[k]}
+
+
+def serve_smoke(card: str) -> dict:
+    """(a) The reference test's fixtures with the qwen3-8b smoke model
+    (float32, built on the CPU and moved): both engines on the card
+    against the port's CPU run, every output exact; on the card the
+    device engine's interval program replays once an interval and its
+    reconfiguration program once a reconfiguration, launching the greedy
+    then (plus once in the warm-up before its capture)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.serving import (EngineConfig, GraphServingEngine,
+                                     Request, ServingEngine)
+
+    ref = serve_ref()
+    cfg = configs.get_smoke("qwen3-8b")
+    cpu = build(cfg, device="cpu", seed=0)
+    card_model = copy.deepcopy(cpu).to(DEVICE)
+    rows = {}
+    for name, (n, ecfg, make, groups) in ref.fixtures(EngineConfig).items():
+        engines = [("host", lambda m: ServingEngine(
+            m, n, ecfg, device=m.device.type))] + [
+            (f"graph{g}", lambda m, g=g: GraphServingEngine(
+                m, n, ecfg, n_groups=g, device=m.device.type))
+            for g in groups]
+        for kind, make_engine in engines:
+            outs = []
+            for model in (cpu, card_model):
+                eng, reqs = make_engine(model), make(Request, cfg.vocab_size)
+                _, counts = counted(lambda: eng.run(reqs, max_steps=300))
+                outs.append((serve_outputs(eng, reqs), counts))
+            (want, _), (got, counts) = outs
+            counts = {"serve_graph": 0, "serve_reconfig": 0,
+                      "lookahead_greedy": 0, **counts}
+            diff = differing(want, got)
+            check(not diff, f"serve (a) {name} {kind}: card differs from "
+                  f"the CPU in {diff}")
+            if kind != "host":
+                warmup = int("reconfigure_warmup" in eng.capture_seconds)
+                check(counts["serve_graph"] == got["intervals"]
+                      and counts["serve_reconfig"] == got["reconfigs"]
+                      and counts["lookahead_greedy"]
+                      == got["reconfigs"] + warmup,
+                      f"serve (a) {name} {kind}: launches {counts} for "
+                      f"{got['intervals']} intervals and {got['reconfigs']} "
+                      "reconfigurations")
+            rows[f"{name}/{kind}"] = {
+                "steps": got["steps"], "reconfigs": got["reconfigs"],
+                "launches": {k: v for k, v in counts.items() if v}}
+    emit(card, phase="serve", case="smoke", equal_to_cpu=True, runs=rows)
+    del card_model
+    return rows
+
+
+def serve_full(card: str) -> dict:
+    """(b) and (c): qwen3-8b at its full config (bf16, 36 layers) behind
+    the host engine once and the device engine cold, warm and for one
+    profiled interval; then the device engine with CBP off."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.serving import GraphServingEngine, ServingEngine
+
+    ref = serve_ref()
+    cfg = configs.get("qwen3-8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = synced_wall(lambda: build(cfg, DEVICE, seed=0))
+    ecfg = serve_config()
+
+    def timed(eng, max_steps: int = SERVE_MAX_STEPS):
+        reqs = serve_requests(cfg.vocab_size)
+        (_, wall), counts = counted(lambda: synced_wall(
+            lambda: eng.run(reqs, max_steps=max_steps)))
+        return reqs, wall, {"serve_graph": 0, "serve_reconfig": 0,
+                            "lookahead_greedy": 0, **counts}
+
+    def rates(eng, reqs, wall) -> dict:
+        gen = sum(len(r.generated) for r in reqs)
+        return {"wall_s": wall, "steps": eng.steps,
+                "ms_per_step": 1e3 * wall / eng.steps,
+                "generated_tokens": gen,
+                "generated_tokens_per_s": gen / wall,
+                "decoded_tokens_per_s": float(np.sum(eng.tokens_done))
+                / wall}
+
+    host = ServingEngine(model, SERVE_STREAMS, ecfg, device=DEVICE)
+    margins = ref.record_margins(host, ref.top2_torch)
+    h_reqs, h_wall, h_counts = timed(host)
+    want = serve_schedule(host, h_reqs)
+
+    graph = GraphServingEngine(model, SERVE_STREAMS, ecfg, device=DEVICE)
+    runs = {}
+    for kind in ("cold", "warm"):
+        reqs, wall, counts = timed(graph)
+        got = serve_schedule(graph, reqs)
+        shares = got.pop("slot_share")
+        diff = differing(got, want)
+        check(not diff and np.allclose(shares, want["slot_share"],
+                                       rtol=SERVE_SHARE_RTOL, atol=0),
+              f"serve (b) {kind}: schedule differs from the host engine "
+              f"in {diff or ['slot_share']}")
+        verdicts = [ref.token_rule(r.generated, h.generated,
+                                   margins[h.rid])
+                    for r, h in zip(reqs, h_reqs)]
+        check("differ" not in verdicts,
+              f"serve (b) {kind}: tokens differ from the host engine in "
+              f"{verdicts.count('differ')} requests")
+        warmup = int("reconfigure_warmup" in graph.capture_seconds)
+        check(warmup == (kind == "cold" and on_card())
+              and counts["serve_graph"] == graph.intervals
+              and counts["serve_reconfig"] == graph.reconfigs
+              and counts["lookahead_greedy"] == graph.reconfigs + warmup,
+              f"serve (b) {kind}: launches {counts} for {graph.intervals} "
+              f"intervals and {graph.reconfigs} reconfigurations")
+        part = graph.partition.reshape(-1, SERVE_STREAMS)
+        check(bool((part.sum(-1) == SERVE_PAGES).all()
+                   and (part >= 2).all()),
+              f"serve (b) {kind}: partition {graph.partition}")
+        runs[kind] = {**rates(graph, reqs, wall),
+                      "intervals": graph.intervals,
+                      "reconfigs": graph.reconfigs,
+                      "idle_steps": graph.idle_steps,
+                      "excused_requests": verdicts.count("excused"),
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "partition": graph.partition.tolist(),
+                      "capture_seconds": graph.capture_seconds}
+    # one warm interval: unprofiled, then under the profiler
+    _, one_wall, _ = timed(graph, max_steps=SERVE_INTERVAL)
+    prof = device_profile(lambda: graph.run(serve_requests(cfg.vocab_size),
+                                            max_steps=SERVE_INTERVAL))
+    prof["interval_wall_s"] = one_wall
+    prof["busy_share"] = (prof["device_s"] / one_wall
+                          if prof["device_s"] else None)
+    peak = torch.cuda.max_memory_allocated()
+
+    off = GraphServingEngine(
+        model, SERVE_STREAMS,
+        dataclasses.replace(ecfg, reconfig_every_steps=10 ** 9),
+        device=DEVICE)
+    o_reqs, o_wall, o_counts = timed(off)
+    check(off.reconfigs == 0 and o_counts["lookahead_greedy"] == 0
+          and o_counts["serve_reconfig"] == 0
+          and o_counts["serve_graph"] == off.intervals
+          and all(len(r.generated) == r.max_new_tokens for r in o_reqs),
+          f"serve (c) CBP off: reconfigs {off.reconfigs}, launches "
+          f"{o_counts}")
+    same_tokens = sum(r.generated == h.generated
+                      for r, h in zip(o_reqs, h_reqs))
+    out = {"config": cfg.name, "param_dtype": cfg.param_dtype,
+           "n_layers": cfg.n_layers, "weight_bytes": weight_bytes(model),
+           "build_s": build_s, "engine": dataclasses.asdict(ecfg),
+           "streams": SERVE_STREAMS, "requests": len(h_reqs),
+           "prompt_tokens": int(sum(len(r.prompt) for r in h_reqs)),
+           "host": {**rates(host, h_reqs, h_wall),
+                    "reconfigs": host.reconfigs,
+                    "launches": {k: v for k, v in h_counts.items() if v}},
+           "graph": runs, "interval_profile": prof, "peak_bytes": peak,
+           "cbp_off": {**rates(off, o_reqs, o_wall),
+                       "intervals": off.intervals,
+                       "idle_steps": off.idle_steps,
+                       "capture_seconds": off.capture_seconds,
+                       "launches": {k: v for k, v in o_counts.items() if v},
+                       "requests_with_cbp_on_tokens": same_tokens}}
+    emit(card, phase="serve", case="qwen3-8b_full", **out)
+    del model, host, graph, off
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(card: str) -> dict:
+    """Phase 15, with the launch counts reset just before it and read just
+    after; returns them."""
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    serve_smoke(card)
+    full = serve_full(card)
+    counts = launch_counts()
+    check(counts["lookahead_greedy"] > 0, "serve: the greedy never launched")
+    emit(card, phase="serve", case="summary",
+         seconds=time.perf_counter() - t0, launches=counts,
+         host_ms_per_step=full["host"]["ms_per_step"],
+         graph_warm_ms_per_step=full["graph"]["warm"]["ms_per_step"],
+         capture_seconds=full["graph"]["cold"]["capture_seconds"],
+         busy_share=full["interval_profile"]["busy_share"],
+         peak_bytes=full["peak_bytes"])
+    return counts
+
+
+# --------------------------------------------------------------------- #
 # phases 5-6: the kernel-level path (UCP block planner + four kernels)
 # --------------------------------------------------------------------- #
 
@@ -2608,6 +2957,7 @@ def main() -> int:
         launches_static = static_phase(card)
         launches_stream = stream_phase(card)
         launches_models = models_phase(card)
+        launches_serve = serve_phase(card)
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -2639,6 +2989,7 @@ def main() -> int:
             "launches_static": launches_static,
             "launches_stream": launches_stream,
             "launches_models": launches_models["lookahead_greedy"],
+            "launches_serve": launches_serve["lookahead_greedy"],
         }, *path_rows]
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)

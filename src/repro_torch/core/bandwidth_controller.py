@@ -14,18 +14,27 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.numpy_order import numpy_order_sum
+
 
 def allocate_bandwidth(queuing_delay: torch.Tensor, total_bandwidth: float,
-                       min_allocation) -> torch.Tensor:
+                       min_allocation, numpy_order: bool = False
+                       ) -> torch.Tensor:
     """Algorithm 1 over ``(..., n)`` delays; ``min_allocation`` is a scalar
     or a ``(..., 1)`` tensor of per-row floors.  Same op order as the
-    reference, so the result agrees with it to the last bits of a sum."""
+    reference, so the result agrees with it to the last bits of a sum;
+    ``numpy_order`` sums the delays in numpy's order
+    (:func:`~repro_torch.numpy_order.numpy_order_sum`), the same on every
+    device, so the result is the numpy golden's bit for bit.  Inside a
+    CUDA graph capture pass ``min_allocation`` as a tensor on the delays'
+    device (a Python scalar would be copied from the host)."""
     delay = queuing_delay
     n = delay.shape[-1]
     min_alloc = torch.as_tensor(min_allocation, dtype=delay.dtype,
                                 device=delay.device)
     remaining = total_bandwidth - min_alloc * n
-    total_delay = delay.sum(dim=-1, keepdim=True)
+    total_delay = (numpy_order_sum(delay) if numpy_order
+                   else delay.sum(dim=-1, keepdim=True))
     share = torch.where(
         total_delay > 0,
         delay / torch.where(total_delay > 0, total_delay, 1.0),

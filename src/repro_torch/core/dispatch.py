@@ -42,6 +42,17 @@ _COUNTERS: Dict[str, LaunchCounter] = {}
 #: the card.
 SCHEDULE_GRAPH_REPLAYS = LaunchCounter("schedule_graph")
 
+#: Runs of the serving graph engine's interval program
+#: (:class:`repro_torch.serving.engine_graph.GraphServingEngine`): one per
+#: reconfiguration interval, a CUDA-graph replay on the card and an eager
+#: run on the CPU (the port's counterpart of the reference engine's
+#: ``record_dispatch``).
+SERVE_GRAPH_REPLAYS = LaunchCounter("serve_graph")
+
+#: Runs of the serving graph engine's reconfiguration program: one per
+#: reconfiguration, after the interval program.
+SERVE_RECONFIG_REPLAYS = LaunchCounter("serve_reconfig")
+
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last reset."""

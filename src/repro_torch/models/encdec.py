@@ -158,7 +158,10 @@ def cross_kv(params, cfg: ModelConfig,
     return torch.stack(ks), torch.stack(vs)
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
+def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len,
+                inplace: bool = False):
+    """One-token step; with ``inplace`` the self-attention K/V rows are
+    written into ``cache``'s own tensors and ``cache`` is returned."""
     x = T.embed(params, cfg, tokens)
     pos = L.sinusoidal_positions(1, cfg.d_model, x.device)  # simplified
     x = x + pos[None].to(x.dtype)
@@ -169,7 +172,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
         lp = L.layer(params["decoder"], i)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         att, nk, nv = T.attention_decode(lp["attn"], cfg, h, cache["k"][i],
-                                         cache["v"][i], cur_len)
+                                         cache["v"][i], cur_len, inplace)
         x = x + att
         h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
         q = L.einsum("bsd,dk->bsk", h, lp["xattn"]["wq"]).reshape(
@@ -184,6 +187,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
         new_v.append(nv)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = T.logits_fn(params, cfg, hidden)
+    if inplace:
+        return logits, cache
     new_cache = dict(cache)
     new_cache["k"] = torch.stack(new_k)
     new_cache["v"] = torch.stack(new_v)

@@ -75,12 +75,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
+def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len,
+                inplace: bool = False):
     """One-token step, site by site: the shared block against the site's
     K/V cache, then the site's Mamba layers.  The reference pads the
     Mamba stack to ``sites * attn_every`` layers and masks the padding
     out; a loop over the real layers computes the same, with the cache's
-    ``conv``/``state`` in ``n_layers`` rows and ``k``/``v`` in ``sites``."""
+    ``conv``/``state`` in ``n_layers`` rows and ``k``/``v`` in ``sites``.
+    With ``inplace`` every new row goes into ``cache``'s own tensors and
+    ``cache`` is returned."""
     x = T.embed(params, cfg, tokens)
     shared = params["shared"]
     every = cfg.attn_every
@@ -89,7 +92,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
         h = L.rms_norm(x, shared["ln1"], cfg.norm_eps)
         att, nk, nv = T.attention_decode(shared["attn"], cfg, h,
                                          cache["k"][site], cache["v"][site],
-                                         cur_len)
+                                         cur_len, inplace)
         x = x + att
         h = L.rms_norm(x, shared["ln2"], cfg.norm_eps)
         x = x + L.swiglu(h, shared["mlp"]["wg"], shared["mlp"]["wu"],
@@ -99,9 +102,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
         for i in range(site * every, min((site + 1) * every, cfg.n_layers)):
             x, nc, ns = S.mamba_decode(L.layer(params["layers"], i), cfg, x,
                                        cache["conv"][i], cache["state"][i])
+            if inplace:
+                cache["conv"][i].copy_(nc)
+                cache["state"][i].copy_(ns)
             convs.append(nc)
             states.append(ns)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = T.logits_fn(params, cfg, hidden)
+    if inplace:
+        return logits, cache
     return logits, {"conv": torch.stack(convs), "state": torch.stack(states),
                     "k": torch.stack(ks), "v": torch.stack(vs)}

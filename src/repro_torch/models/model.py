@@ -8,7 +8,7 @@ methods are the reference facade's without the ``params`` argument:
   loss(batch)                      -> scalar
   prefill(batch)                   -> last-position logits (B, 1, V)
   init_cache(batch, max_len)       -> decode cache (dict of tensors)
-  decode_step(cache, tokens, cur_len) -> (logits, cache)
+  decode_step(cache, tokens, cur_len, inplace=False) -> (logits, cache)
   input_specs(shape)               -> {name: meta tensor} for a named shape
 
 Batches are dicts of tensors or arrays; they are moved to the model's
@@ -114,11 +114,15 @@ class Model(nn.Module):
         return self._mod.init_cache(self.cfg, batch, max_len, dtype,
                                     self.device)
 
-    def decode_step(self, cache, tokens, cur_len):
+    def decode_step(self, cache, tokens, cur_len, inplace: bool = False):
+        """One decode step; ``inplace`` writes the new cache rows into
+        ``cache``'s own tensors and returns ``cache`` (the serving graph
+        engine's decode: its buffers stay put), bit for bit the
+        out-of-place result."""
         tokens = torch.as_tensor(tokens, device=self.device)
         cur_len = torch.as_tensor(cur_len, device=self.device)
         return self._mod.decode_step(self.params, self.cfg, cache, tokens,
-                                     cur_len)
+                                     cur_len, inplace=inplace)
 
     def prefill(self, batch):
         """Inference prefill: full-sequence forward, LAST-position logits

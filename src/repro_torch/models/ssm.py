@@ -199,14 +199,23 @@ def init_params(gen, cfg: ModelConfig, device) -> Dict:
     }
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
+def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len,
+                inplace: bool = False):
+    """One-token step; with ``inplace`` each layer's new conv and state
+    rows are copied into ``cache``'s own tensors and ``cache`` is
+    returned."""
     x = T.embed(params, cfg, tokens)
     convs, states = [], []
     for i in range(cfg.n_layers):
         x, nc, ns = mamba_decode(L.layer(params["layers"], i), cfg, x,
                                  cache["conv"][i], cache["state"][i])
+        if inplace:
+            cache["conv"][i].copy_(nc)
+            cache["state"][i].copy_(ns)
         convs.append(nc)
         states.append(ns)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = T.logits_fn(params, cfg, hidden)
+    if inplace:
+        return logits, cache
     return logits, {"conv": torch.stack(convs), "state": torch.stack(states)}

@@ -134,13 +134,16 @@ def attention_block(p, cfg: ModelConfig, x, positions,
     return L.einsum("bsk,kd->bsd", o.reshape(b, s, -1), p["wo"])
 
 
-def _write_cache(cfg: ModelConfig, cache, new, write_at):
-    """The cache with ``new`` (B, 1, Hkv, Dh) written at ``write_at``, out
-    of place, by the reference's three paths: per row (a (B,) vector;
-    positions past the cache are dropped), ``onehot`` (a masked select
-    over the sequence; a position past the cache writes nothing) and
-    ``dus`` (``dynamic_update_slice``, whose start is clamped into the
-    cache)."""
+def _write_cache(cfg: ModelConfig, cache, new, write_at,
+                 inplace: bool = False):
+    """The cache with ``new`` (B, 1, Hkv, Dh) written at ``write_at`` by the
+    reference's three paths: per row (a (B,) vector; positions past the
+    cache are dropped), ``onehot`` (a masked select over the sequence; a
+    position past the cache writes nothing) and ``dus``
+    (``dynamic_update_slice``, whose start is clamped into the cache).
+    Out of place, or (``inplace``) into ``cache`` itself, which is
+    returned: the same values, written with no copy of the cache and no
+    host read of ``write_at``."""
     smax = cache.shape[1]
     if write_at.dim() >= 1:
         at = write_at.reshape(-1)
@@ -148,19 +151,32 @@ def _write_cache(cfg: ModelConfig, cache, new, write_at):
         inside = at < smax
         at = at.clamp(0, smax - 1)
         vals = torch.where(inside[:, None, None], new[:, 0], cache[rows, at])
+        if inplace:
+            return cache.index_put_((rows, at), vals)
         return cache.index_put((rows, at), vals)
     if cfg.decode_cache_update == "onehot":
+        if inplace:
+            at = write_at.clamp(0, smax - 1).reshape(1)
+            inside = (write_at >= 0) & (write_at < smax)
+            vals = torch.where(inside, new, cache.index_select(1, at))
+            return cache.index_copy_(1, at, vals)
         sel = torch.arange(smax, device=cache.device) == write_at
         return torch.where(sel[None, :, None, None], new, cache)
-    return cache.index_copy(1, write_at.clamp(0, smax - 1).reshape(1), new)
+    at = write_at.clamp(0, smax - 1).reshape(1)
+    if inplace:
+        return cache.index_copy_(1, at, new)
+    return cache.index_copy(1, at, new)
 
 
-def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, cur_len):
+def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, cur_len,
+                     inplace: bool = False):
     """One-token attention against the cache; returns (out, new_k, new_v).
 
     cache_k/v: (B, Smax, Hkv, Dh).  ``cur_len`` is a scalar (every row
     writes and attends at the same position) or a per-row ``(B,)`` vector
-    (continuous batching), which always takes the per-row write.
+    (continuous batching), which always takes the per-row write.  With
+    ``inplace`` the new row is written into ``cache_k``/``cache_v``
+    themselves (:func:`_write_cache`), which are returned.
     """
     b = x.shape[0]
     write_at = torch.as_tensor(cur_len, device=x.device).long()
@@ -169,8 +185,10 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, cur_len):
         pos = write_at.reshape(-1)[:, None]   # (B|1, 1)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
-    cache_k = _write_cache(cfg, cache_k, _kv_store(cfg, k, cache_k), write_at)
-    cache_v = _write_cache(cfg, cache_v, _kv_store(cfg, v, cache_v), write_at)
+    cache_k = _write_cache(cfg, cache_k, _kv_store(cfg, k, cache_k), write_at,
+                           inplace)
+    cache_v = _write_cache(cfg, cache_v, _kv_store(cfg, v, cache_v), write_at,
+                           inplace)
     ckd = _kv_load(cfg, cache_k)
     cvd = _kv_load(cfg, cache_v)
     if cfg.decode_gqa == "grouped" and cfg.n_rep > 1:
@@ -367,10 +385,13 @@ def _kv_load(cfg: ModelConfig, cache):
     return cache
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
+def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len,
+                inplace: bool = False):
     """One greedy decode step.  tokens: (B, 1) ints (or embeddings
     (B, 1, d) for stub frontends); cur_len: () or (B,) current cache
-    length.  Returns (logits, new_cache)."""
+    length.  Returns (logits, new_cache); with ``inplace`` the new K/V rows
+    are written into ``cache``'s own tensors and ``cache`` is returned
+    (bit for bit the out-of-place cache; a CUDA graph keeps its buffers)."""
     if tokens.dim() == 3:
         x = tokens.to(_dtype(cfg))
     else:
@@ -380,7 +401,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
         lp = L.layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         att, nk, nv = attention_decode(lp["attn"], cfg, h, cache["k"][i],
-                                       cache["v"][i], cur_len)
+                                       cache["v"][i], cur_len, inplace)
         x = x + att
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(lp, cfg, h)
@@ -388,4 +409,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len):
         new_v.append(nv)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, cfg, hidden)
+    if inplace:
+        return logits, cache
     return logits, {"k": torch.stack(new_k), "v": torch.stack(new_v)}

@@ -40,7 +40,10 @@ assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
         "repro_torch.models.layers", "repro_torch.models.attention",
         "repro_torch.models.transformer", "repro_torch.models.ssm",
         "repro_torch.models.hybrid", "repro_torch.models.encdec",
-        "repro_torch.models.model", "repro_torch.models.convert"
+        "repro_torch.models.model", "repro_torch.models.convert",
+        "repro_torch.serving", "repro_torch.serving.kv_cache",
+        "repro_torch.serving.engine", "repro_torch.serving.engine_graph",
+        "repro_torch.launch", "repro_torch.launch.serve"
         } <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -66,8 +69,12 @@ from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
 from repro_torch.train import make_stream_plant_model
 from repro_torch import configs
 from repro_torch.models import build, params_from_jax
+from repro_torch.launch import serve
+from repro_torch.serving import (EngineConfig, GraphServingEngine,
+                                 ServingEngine)
 import numpy as np
 step_fn, step_model = make_stream_plant_model(4, 48, 64.0, device="cpu")
+cpu_model = build(configs.get_smoke("qwen3-8b"), device="cpu")
 for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: lookahead_allocate(np.zeros((16, 257)), 256),
              lambda: run_all_managers(["lbm", "mcf"], total_ms=1.0),
@@ -82,7 +89,11 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: run_stream(StreamConfig(n_mixes=4, chunk_size=4,
                                              managers=("CBP",))),
              lambda: build(configs.get_smoke("qwen3-8b")),
-             lambda: params_from_jax(configs.get_smoke("mamba2-1.3b"), {})):
+             lambda: params_from_jax(configs.get_smoke("mamba2-1.3b"), {}),
+             lambda: serve.main(["--engine", "graph"]),
+             lambda: serve.main([]),
+             lambda: GraphServingEngine(cpu_model, 4, EngineConfig()),
+             lambda: ServingEngine(cpu_model, 4, EngineConfig())):
     try:
         call()
     except RuntimeError as exc:
