@@ -164,6 +164,31 @@ before it and read just after:
              profiled warm interval, peak memory and the idle tail steps;
              (c) the device engine with CBP off at full width:
              no reconfiguration, no greedy launch.
+16. train  — the training stack (``repro_torch.train``, ``optim``,
+             ``data``, ``launch.train``, ``checkpoint``), which calls no
+             hand-written kernel (the reference's train step reaches
+             none): (a) every smoke config, 3 AdamW steps from parameters
+             built on the CPU and copied to the card (float32, TF32 off),
+             losses and parameters against the port's CPU run (the
+             bound at TRAIN_ATOL); (b) ``train_loop`` on the card: the
+             qwen3-8b smoke loss falls over 30 steps, a mamba2-1.3b
+             restart re-runs only the 6 missing steps, and a bf16 qwen3-8b
+             smoke model's parameters and f32 optimizer state come back
+             from a checkpoint bit for bit; (c) qwen3-8b at full width
+             (bf16, remat "full") cut to 8 of 36 layers: 6 AdamW steps and
+             3 Adafactor steps on 4 x 1,024 tokens through
+             ``build_train_step`` and the ``PrefetchPipeline``: finite
+             losses, warm step time, tokens/s, 6 N T over the step at 989
+             TFLOP/s (and with the remat recompute), the optimizer's time
+             alone, the card's busy share and device time by kernel kind
+             over one profiled step, the run's peak memory (above what
+             earlier phases left allocated) within PERF.md's prediction
+             (TRAIN_PEAK_LIMIT), and two steps with per-layer
+             selects in place of one ``unbind`` (no checkpoint is written
+             at this size: 39 GB); (d) ``tests/test_train_loop.py:34``'s
+             plant through the port's ``CBPCoordinator`` on the card, its
+             assertions unchanged, one greedy launch per reconfiguration.
+             The launch counts stay 0 over (a)-(c).
 
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
@@ -204,16 +229,19 @@ and a last ``done`` line gives the script's seconds; then comes the
 ``kernels`` line (every kernel's launches on its path, error, times and
 bound; the greedy's at the bucketed sweep's own boundary inputs, with its
 launches on every path, 0 in phase 14, phase 15's as ``launches_serve``,
-and the shapes of every path's inputs it was held to).  Any failed check exits non-zero before the last
-line, which is ``{"ok": true, "device": {...}}`` on success.  Without a
-CUDA card, or outside a checkout of the repository, it exits non-zero and
-prints no result.
+phase 16(d)'s as ``launches_train_binding``, and the shapes of every
+path's inputs it was held to; every kernel's ``launches_train``, its
+launches over phase 16(a)-(c)).  Any failed check exits non-zero before
+the last line, which is ``{"ok": true, "device": {...}}`` on success.
+Without a CUDA card, or outside a checkout of the repository, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
 import inspect
 import json
+import math
 import subprocess
 import sys
 import time
@@ -717,13 +745,15 @@ def timed_sweep(mixes, **kw):
     return res, time.perf_counter() - t0, launch_counts()
 
 
-def device_profile(fn, kernel: str = "") -> dict:
+def device_profile(fn, kernel: str = "", categories=None) -> dict:
     """Run ``fn`` once under the profiler: the device time of every CUDA
     kernel (and copy) it ran, summed once each, the part of kernels whose
     name holds ``kernel``, and the kernels that took the most.  Kernel
     durations are device-side, so they hold for an unprofiled run; the
     profiled wall does not (tracing slows the host).  Values are None
-    where the profiler saw no device events."""
+    where the profiler saw no device events.  ``categories`` ({category:
+    name substrings}, tried in order; the rest is "other") adds the
+    device time by category."""
     import collections
 
     import torch
@@ -738,15 +768,24 @@ def device_profile(fn, kernel: str = "") -> dict:
     wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = collections.Counter()
+    by_category = collections.Counter()
     for e in dev:
-        by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e6
+        seconds = e.time_range.elapsed_us() / 1e6
+        by_name[e.name[:80]] += seconds
+        if categories:
+            by_category[next((c for c, keys in categories.items()
+                              if any(k in e.name for k in keys)),
+                             "other")] += seconds
     device_s = sum(by_name.values())
     part_s = sum(v for k, v in by_name.items() if kernel and kernel in k)
-    return {"profiled_wall_s": wall,
-            "device_events": len(dev),
-            "device_s": device_s if dev else None,
-            "part_device_s": part_s if dev else None,
-            "top_device_s": [[k, v] for k, v in by_name.most_common(5)]}
+    rec = {"profiled_wall_s": wall,
+           "device_events": len(dev),
+           "device_s": device_s if dev else None,
+           "part_device_s": part_s if dev else None,
+           "top_device_s": [[k, v] for k, v in by_name.most_common(5)]}
+    if categories:
+        rec["category_device_s"] = dict(by_category)
+    return rec
 
 
 def profile_sweep(mixes) -> dict:
@@ -2445,6 +2484,395 @@ def serve_phase(card: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase 16: the training path
+# --------------------------------------------------------------------- #
+
+#: (a) Every smoke config, 3 AdamW steps at lr 1e-3 on 2 x 32 tokens,
+#: from parameters built on the CPU and copied to the card (float32, TF32
+#: off), against the port's CPU run: losses within atol 1e-5 max(1,
+#: |loss|) + rtol 1e-4 (the CPU gradient gate's bound); parameters within
+#: that bound on at least 99.9 % of entries and every entry within
+#: 2 lr steps (AdamW's first step is nearly a sign function, so an entry
+#: whose gradient's sign is decided by rounding moves by up to 2 lr; MoE
+#: gradients on the card sum by atomics, so are not bit-reproducible).
+#: zamba2-7b (R4) also within 4 times the CPU run's own spread, its
+#: parameters one ulp up.
+TRAIN_SMOKE_STEPS, TRAIN_SMOKE_LR = 3, 1e-3
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 32
+TRAIN_ATOL, TRAIN_RTOL, TRAIN_SHARE = 1e-5, 1e-4, 0.999
+#: (c) qwen3-8b at full width (bf16, remat "full"), depth cut to 8 of its
+#: 36 layers: 6 AdamW steps at lr 3e-4, then 3 Adafactor steps, on
+#: SyntheticTokens batches of 4 x 1,024 through the PrefetchPipeline.
+TRAIN_FULL_LAYERS, TRAIN_FULL_B, TRAIN_FULL_S = 8, 4, 1024
+TRAIN_FULL_ADAMW, TRAIN_FULL_ADAFACTOR, TRAIN_FULL_LR = 6, 3, 3e-4
+#: Steps of (c) run again with each layer taken by a per-layer select
+#: (``t[i]``) instead of one ``unbind``: the stacked-gradient writes.
+TRAIN_SELECT_STEPS = 2
+#: Peak device memory of (c)'s AdamW run above what was allocated when
+#: (c) began (what earlier phases left resident): PERF.md's prediction
+#: for the run, written before the first chip call of PR 25 (47-56 GB
+#: expected).
+TRAIN_PEAK_LIMIT = 60e9
+#: Device time of (c)'s profiled AdamW step by kernel name: products
+#: (cuBLAS), casts, copies and fills, reductions, index and scatter work,
+#: softmax, and the rest (elementwise arithmetic).
+TRAIN_KERNEL_CATEGORIES = {
+    "gemm": ("nvjet", "gemm", "cutlass", "xmma"),
+    "copy_cast_fill": ("copy", "Memcpy", "Memset", "fill"),
+    "reduction": ("reduce",),
+    "index_scatter_sort": ("index", "scatter", "gather", "sort", "radix"),
+    "softmax": ("softmax",),
+}
+#: (d) tests/test_train_loop.py:34's plant and coordinator run.
+BINDING_UNITS, BINDING_BW, BINDING_MS = 64, 100.0, 100.0
+
+
+def train_inputs(cfg, step: int, device) -> dict:
+    """Step ``step``'s smoke batch (:func:`model_inputs`, seed ``step``)."""
+    return model_inputs(cfg, TRAIN_SMOKE_B, TRAIN_SMOKE_S, device,
+                        seed=step)
+
+
+def train_run(model, device) -> tuple:
+    """TRAIN_SMOKE_STEPS AdamW steps: (losses, final parameters on the
+    CPU by name)."""
+    import torch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import TrainStepConfig, build_train_step
+
+    init_opt, step = build_train_step(
+        model, TrainStepConfig(lr=TRAIN_SMOKE_LR))
+    params = model.params
+    opt = init_opt(params)
+    losses = []
+    for i in range(TRAIN_SMOKE_STEPS):
+        params, opt, metrics = step(params, opt,
+                                    train_inputs(model.cfg, i, device))
+        losses.append(float(metrics["loss"]))
+    return (torch.tensor(losses, dtype=torch.float64),
+            [p.detach().float().cpu() for p in tree_leaves(params)])
+
+
+def train_outside(got, want, spread: float, what: str) -> tuple:
+    """(entries past the bound, largest |diff|); checks 2 lr steps."""
+    diff = (got - want).abs()
+    limit = 2 * TRAIN_SMOKE_LR * TRAIN_SMOKE_STEPS
+    check(float(diff.max()) <= limit,
+          f"train {what}: card vs CPU {float(diff.max()):.3g} past "
+          f"2 lr steps = {limit:.3g}")
+    atol = max(TRAIN_ATOL * max(1.0, float(want.abs().max())),
+               R4_FACTOR * spread)
+    return int((diff > atol + TRAIN_RTOL * want.abs()).sum()), \
+        float(diff.max())
+
+
+def train_smoke(card: str) -> dict:
+    """(a) Every smoke config trained on the card against the CPU."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    out = {}
+    for name in configs.names():
+        cfg = configs.get_smoke(name)
+        cpu = build(cfg, device="cpu", seed=0)
+        card_model = copy.deepcopy(cpu).to(DEVICE)
+        spread_loss, spread_params = 0.0, None
+        if name == "zamba2-7b":
+            l1, p1 = train_run(nudged(cpu), "cpu")
+        want_l, want_p = train_run(cpu, "cpu")
+        if name == "zamba2-7b":
+            spread_loss = float((l1 - want_l).abs().max())
+            spread_params = [float((a - b).abs().max())
+                             for a, b in zip(p1, want_p)]
+        got_l, got_p = train_run(card_model, DEVICE)
+        check(bool(got_l.isfinite().all()), f"train {name}: loss not finite")
+        loss_err = float((got_l - want_l).abs().max())
+        loss_atol = max(TRAIN_ATOL * max(1.0, float(want_l.abs().max())),
+                        R4_FACTOR * spread_loss)
+        check(bool(((got_l - want_l).abs()
+                    <= loss_atol + TRAIN_RTOL * want_l.abs()).all()),
+              f"train {name}: card losses {got_l.tolist()} vs CPU "
+              f"{want_l.tolist()}")
+        outside, worst, total = 0, 0.0, 0
+        for i, (g, w) in enumerate(zip(got_p, want_p)):
+            n, d = train_outside(g, w, spread_params[i] if spread_params
+                                 else 0.0, f"{name} leaf {i}")
+            outside, worst, total = outside + n, max(worst, d), \
+                total + w.numel()
+        check(outside <= (1 - TRAIN_SHARE) * total,
+              f"train {name}: {outside} of {total} parameter entries past "
+              f"the bound")
+        out[name] = {"loss_max_abs": loss_err, "param_max_abs": worst,
+                     "entries_outside": outside, "entries": total}
+        emit(card, phase="train", case="smoke", config=name,
+             losses_card=got_l.tolist(), losses_cpu=want_l.tolist(),
+             **out[name], cpu_one_ulp_loss_spread=spread_loss)
+        del card_model
+    return out
+
+
+def train_loop_checks(card: str) -> dict:
+    """(b) The loop on the card: the loss decreases; a restart re-runs
+    only the missing steps; bf16 parameters and the f32 optimizer state
+    come back from a checkpoint bit for bit, on the card."""
+    import dataclasses
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import _msgpack
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build
+    from repro_torch.train import TrainStepConfig, build_train_step
+
+    rec = {}
+    t0 = time.perf_counter()
+    out = train_loop("qwen3-8b", steps=30, batch=4, seq=32, log_every=0,
+                     cbp_manage=False, device=DEVICE)
+    first, last = np.mean(out["losses"][:5]), np.mean(out["losses"][-5:])
+    check(last < first, f"train loop: loss did not fall ({first}, {last})")
+    rec["qwen3_8b_loss_first5_last5"] = [float(first), float(last)]
+    rec["qwen3_8b_30_steps_s"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(batch=2, seq=32, ckpt_dir=pathlib.Path(tmp) / "ckpt",
+                  ckpt_every=5, log_every=0, cbp_manage=False, device=DEVICE)
+        train_loop("mamba2-1.3b", steps=10, **kw)
+        out2 = train_loop("mamba2-1.3b", steps=16, **kw)
+        check(len(out2["losses"]) == 6 and np.isfinite(out2["final_loss"]),
+              f"train restart: {out2['losses']}")
+        rec["restart_losses"] = out2["losses"]
+
+        cfg = dataclasses.replace(configs.get_smoke("qwen3-8b"),
+                                  param_dtype="bfloat16")
+        model = build(cfg, DEVICE, seed=0)
+        init_opt, step = build_train_step(model, TrainStepConfig())
+        params = model.params
+        opt = init_opt(params)
+        for i in range(2):
+            params, opt, _ = step(params, opt, train_inputs(cfg, i, DEVICE))
+        tree = {"params": params, "opt": opt}
+        mgr = CheckpointManager(pathlib.Path(tmp) / "bf16", keep=2)
+        mgr.save(2, tree, extra={"data": {"index": 2}})
+        leaves = ckpt_mod._leaves(tree)
+        like = ckpt_mod._rebuild(tree, {ckpt_mod._name(p): torch.zeros_like(t)
+                                        for p, t in leaves})
+        step_no, got, _ = mgr.restore_latest(like)
+        manifest = _msgpack.unpackb(
+            (pathlib.Path(tmp) / "bf16" / "step_0000000002"
+             / "manifest.msgpack").read_bytes())["leaves"]
+        for (path, want), (_, g) in zip(leaves, ckpt_mod._leaves(got)):
+            what = ckpt_mod._name(path)
+            check(g.dtype == want.dtype and g.device == want.device
+                  and torch.equal(g, want),
+                  f"train bf16 checkpoint: {what} differs")
+        check(manifest["params/embed"]["dtype"] == "bfloat16"
+              and manifest["opt/.master/embed"]["dtype"] == "float32",
+              "train bf16 checkpoint: manifest dtypes")
+        rec["bf16_checkpoint_leaves"] = len(leaves)
+    emit(card, phase="train", case="loop", **rec)
+    return rec
+
+
+def train_full(card: str) -> dict:
+    """(c) qwen3-8b at full width, cut to TRAIN_FULL_LAYERS layers: AdamW
+    then Adafactor steps through ``build_train_step`` and the
+    ``PrefetchPipeline``; step times, tokens/s, model FLOP share, the
+    optimizer's share, the card's busy share and peak memory."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import PrefetchPipeline, SyntheticTokens
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.optim import make_optimizer
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import TrainStepConfig, build_train_step
+
+    cfg = dataclasses.replace(configs.get("qwen3-8b"),
+                              n_layers=TRAIN_FULL_LAYERS)
+    tokens = TRAIN_FULL_B * TRAIN_FULL_S
+    n_params = cfg.param_count()
+    n_embed = cfg.vocab_size * cfg.d_model
+    n_matmul = n_params - n_embed - cfg.d_model   # layers + head
+    n_layers = n_matmul - cfg.d_model * cfg.vocab_size
+    out = {"config": f"qwen3-8b, {TRAIN_FULL_LAYERS} of 36 layers",
+           "params": n_params, "tokens_per_step": tokens,
+           "remat": cfg.remat, "dtype": cfg.param_dtype}
+    # what earlier phases dropped but a reference cycle still holds
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    out["resident_bytes"] = resident
+    model = build(cfg, DEVICE, seed=0)
+    pipe = PrefetchPipeline(SyntheticTokens(
+        TRAIN_FULL_B, TRAIN_FULL_S, cfg.vocab_size, seed=1), depth=2)
+
+    def run(kind: str, steps: int) -> dict:
+        init_opt, step = build_train_step(
+            model, TrainStepConfig(optimizer=kind, lr=TRAIN_FULL_LR))
+        params = model.params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        opt = init_opt(params)
+        losses, walls = [], []
+        for _ in range(steps):
+            batch = next(pipe)
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))   # waits for the step
+            walls.append(time.perf_counter() - t0)
+        check(all(math.isfinite(v) for v in losses),
+              f"train full {kind}: losses {losses}")
+        warm = statistics.median(walls[1:])
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"losses": losses, "step_s": walls, "warm_step_s": warm,
+               "tokens_per_s": tokens / warm, "peak_bytes": peak,
+               "run_peak_bytes": peak - resident,
+               "model_flop_share_6n": 6 * n_params * tokens / warm
+               / BF16_TC_OPS_PER_S,
+               "with_remat_recompute_share": (6 * n_params + 2 * n_layers)
+               * tokens / warm / BF16_TC_OPS_PER_S}
+        return rec, step, params, opt
+
+    adamw, step, params, opt = run("adamw", TRAIN_FULL_ADAMW)
+    check(adamw["run_peak_bytes"] <= TRAIN_PEAK_LIMIT,
+          f"train full: the run's peak {adamw['run_peak_bytes'] / 1e9:.2f} "
+          f"GB (above {resident / 1e9:.2f} GB resident) past the "
+          f"prediction's {TRAIN_PEAK_LIMIT / 1e9:.0f} GB")
+    prof = device_profile(lambda: step(params, opt, next(pipe)),
+                          categories=TRAIN_KERNEL_CATEGORIES)
+    if prof["device_s"] is not None:
+        adamw["busy_share"] = prof["device_s"] / adamw["warm_step_s"]
+    adamw["device_s"] = prof["device_s"]
+    adamw["category_device_s"] = prof["category_device_s"]
+    adamw["kernels_per_step"] = prof["device_events"]
+
+    # the optimizer alone: the update on gradients of the parameters'
+    # shape and dtype (the values do not change its work)
+    _, update = make_optimizer("adamw", TRAIN_FULL_LR, weight_decay=0.1,
+                               grad_clip=1.0)
+    grads = tree_map(lambda p: p.detach() * 1e-3, params)
+    walls = []
+    for _ in range(3):
+        (params, opt), wall = synced_wall(lambda: update(params, grads, opt))
+        walls.append(wall)
+    adamw["optimizer_s"] = statistics.median(walls[1:])
+    adamw["optimizer_share"] = adamw["optimizer_s"] / adamw["warm_step_s"]
+    del grads
+
+    # the same step with each layer taken by a per-layer select
+    layers = L.layers
+    L.layers = lambda stack, n: [L.layer(stack, i) for i in range(n)]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(TRAIN_SELECT_STEPS):
+            (params, opt, _), wall = synced_wall(
+                lambda: step(params, opt, next(pipe)))
+            walls.append(wall)
+        adamw["select_step_s"] = walls
+        adamw["select_run_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                          - resident)
+    finally:
+        L.layers = layers
+    del opt, step
+    out["adamw"] = adamw
+    emit(card, phase="train", case="qwen3-8b_full_adamw",
+         **adamw, top_device_s=prof["top_device_s"])
+    torch.cuda.empty_cache()
+
+    adafactor, step, params, opt = run("adafactor", TRAIN_FULL_ADAFACTOR)
+    del opt, step
+    out["adafactor"] = adafactor
+    emit(card, phase="train", case="qwen3-8b_full_adafactor", **adafactor)
+    pipe.stop()
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_binding(card: str) -> dict:
+    """(d) tests/test_train_loop.py:34 on the card: the port's
+    ``CBPCoordinator`` over a ``TrainingPlant`` converges as the test
+    asserts, and the greedy launches once per reconfiguration."""
+    import numpy as np
+    from repro_torch.core.coordinator import CBPCoordinator
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.core.types import CBPParams, fig8_schedule
+    from repro_torch.runtime.cbp_runtime import TrainingPlant
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_train_ref import training_plant_step_fn
+
+    params = CBPParams(min_bandwidth_allocation=5.0, min_ways=2)
+    plant = TrainingPlant(2, BINDING_UNITS, BINDING_BW,
+                          training_plant_step_fn(BINDING_UNITS, BINDING_BW),
+                          device=DEVICE)
+    coord = CBPCoordinator(plant, params=params)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    coord.run(BINDING_MS)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    alloc = coord.alloc
+    units = alloc.cache_units.cpu().numpy()
+    bw = alloc.bandwidth.cpu().numpy()
+    check(units[0] > units[1] and bw[1] > bw[0]
+          and bool(alloc.prefetch_on[0]) and int(units.sum()) == BINDING_UNITS
+          and np.isclose(bw.sum(), BINDING_BW),
+          f"train binding: {units}, {bw}, {alloc.prefetch_on}")
+    reconfigs = sum(seg.kind == "reconfigure"
+                    for seg in fig8_schedule(BINDING_MS, params, True))
+    if on_card():
+        check(counts["lookahead_greedy"] == reconfigs,
+              f"train binding: {counts['lookahead_greedy']} greedy launches "
+              f"for {reconfigs} reconfigurations")
+    rec = {"wall_s": wall, "reconfigurations": reconfigs,
+           "greedy_launches": counts["lookahead_greedy"],
+           "cache_units": units.tolist(), "bandwidth": bw.tolist()}
+    emit(card, phase="train", case="binding", **rec)
+    return rec
+
+
+def train_phase(card: str) -> tuple:
+    """Phase 16, with the launch counts reset just before (a)-(c) and read
+    just after (the training path launches no hand-written kernel: the
+    reference's training step reaches none), then reset again for (d),
+    the coordinator binding, whose greedy launches are printed apart."""
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    smoke = train_smoke(card)
+    loop = train_loop_checks(card)
+    full = train_full(card)
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"train: a hand-written kernel launched: {counts}")
+    binding = train_binding(card)
+    emit(card, phase="train", case="summary",
+         seconds=time.perf_counter() - t0, launches=counts,
+         smoke_configs=len(smoke), loop=loop,
+         adamw_warm_step_s=full["adamw"]["warm_step_s"],
+         adamw_tokens_per_s=full["adamw"]["tokens_per_s"],
+         adamw_run_peak_bytes=full["adamw"]["run_peak_bytes"],
+         resident_bytes=full["resident_bytes"],
+         adafactor_warm_step_s=full["adafactor"]["warm_step_s"],
+         binding_greedy_launches=binding["greedy_launches"])
+    return counts, binding
+
+
+# --------------------------------------------------------------------- #
 # phases 5-6: the kernel-level path (UCP block planner + four kernels)
 # --------------------------------------------------------------------- #
 
@@ -2958,6 +3386,7 @@ def main() -> int:
         launches_stream = stream_phase(card)
         launches_models = models_phase(card)
         launches_serve = serve_phase(card)
+        launches_train, binding = train_phase(card)
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -2990,7 +3419,10 @@ def main() -> int:
             "launches_stream": launches_stream,
             "launches_models": launches_models["lookahead_greedy"],
             "launches_serve": launches_serve["lookahead_greedy"],
+            "launches_train_binding": binding["greedy_launches"],
         }, *path_rows]
+        for row in kernels:
+            row["launches_train"] = launches_train.get(row["name"], 0)
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

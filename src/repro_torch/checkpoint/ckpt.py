@@ -9,14 +9,22 @@ through ``LATEST.tmp`` and ``os.replace``, so a crash mid-save never
 corrupts the restore point.  ``save_async`` snapshots to host memory at
 once and writes in a background thread.
 
-A tree is nested dicts, lists and tuples of numpy arrays and tensors,
-flattened in ``jax.tree_util``'s order (dict keys sorted, sequences in
-order) and named by its path (the dict key or the sequence index, joined
-with ``/``, stored as ``__``): the reference and the port read each
-other's checkpoints.  The manifest goes through the port's own msgpack
-codec (:mod:`repro_torch.checkpoint._msgpack`), whose bytes equal
-``msgpack.packb``'s.  bfloat16 and float8 leaves are refused for now
-(ROADMAP Queue A, item 5).
+A tree is nested dicts, lists, tuples and NamedTuples of numpy arrays
+and tensors (``None`` holds no leaf), flattened in ``jax.tree_util``'s
+order (dict keys sorted, sequences in order) and named by its path, as
+``jax.tree_util.tree_flatten_with_path`` names it: the dict key, the
+sequence index, or ``.<field>`` for a NamedTuple's field (an optimizer
+state's ``opt/.master/w``), joined with ``/`` and stored as ``__``.  So
+the reference and the port read each other's checkpoints.  bfloat16 and
+float8_e4m3fn leaves are written as their uint16 and uint8 bits with the
+manifest dtype ``"bfloat16"`` or ``"float8_e4m3fn"``, as the reference
+writes them, through ``torch``'s ``view`` (the port does not use
+``ml_dtypes``).  The manifest goes through the port's own msgpack codec
+(:mod:`repro_torch.checkpoint._msgpack`), whose bytes equal
+``msgpack.packb``'s.
+
+A restore takes each leaf's dtype from ``like``: a tensor leaf comes back
+as a tensor on that leaf's device, a numpy leaf as a numpy array.
 """
 from __future__ import annotations
 
@@ -29,37 +37,40 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import _msgpack
 
-#: Leaf dtypes the reference stores as unsigned views (``ml_dtypes``);
-#: the port does not store them yet.
-_VIEW_DTYPES = ("bfloat16", "float8_e4m3fn")
+#: Leaf dtypes stored as unsigned views, as the reference stores them.
+_VIEW_DTYPES = {"bfloat16": (torch.bfloat16, torch.uint16, np.uint16),
+                "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8,
+                                  np.uint8)}
+_VIEW_NAMES = {torch_dtype: name
+               for name, (torch_dtype, _, _) in _VIEW_DTYPES.items()}
 
 
-def _refuse_view_dtype(name: str, dtype: str) -> None:
-    if dtype in _VIEW_DTYPES or dtype.startswith(("torch.bfloat16",
-                                                  "torch.float8")):
-        raise TypeError(
-            f"checkpoint leaf {name!r} has dtype {dtype}: bfloat16 and "
-            f"float8 leaves are not supported yet (ROADMAP Queue A, "
-            f"item 5)")
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _children(tree) -> List[Tuple[Any, Any]]:
+    """(path key, child) pairs of a container in ``jax.tree_util``'s
+    order."""
+    if isinstance(tree, dict):
+        return [(key, tree[key]) for key in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{field}", getattr(tree, field))
+                for field in tree._fields]
+    return list(enumerate(tree))
 
 
 def _leaves(tree, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     """(path, leaf) pairs in ``jax.tree_util``'s flattening order."""
     if tree is None:
         return []
-    if isinstance(tree, dict):
-        out = []
-        for key in sorted(tree):
-            out.extend(_leaves(tree[key], path + (key,)))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, item in enumerate(tree):
-            out.extend(_leaves(item, path + (i,)))
-        return out
+    if isinstance(tree, (dict, list, tuple)):
+        return [pair for key, child in _children(tree)
+                for pair in _leaves(child, path + (key,))]
     return [(path, tree)]
 
 
@@ -67,24 +78,36 @@ def _name(path: Tuple) -> str:
     return "/".join(str(p) for p in path)
 
 
-def _to_numpy(name: str, leaf) -> np.ndarray:
-    """A leaf as a host numpy array (tensors: ``.cpu().numpy()``)."""
-    import torch
-
+def _to_disk(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as the host array written to disk (bfloat16 and float8 as
+    their unsigned bits) and its manifest dtype."""
     if isinstance(leaf, torch.Tensor):
-        _refuse_view_dtype(name, str(leaf.dtype))
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype in _VIEW_NAMES:
+            name = _VIEW_NAMES[t.dtype]
+            return t.view(_VIEW_DTYPES[name][1]).numpy(), name
+        arr = t.numpy()
+        return arr, str(arr.dtype)
     arr = np.asarray(leaf)
-    _refuse_view_dtype(name, str(arr.dtype))
-    return arr
+    name = str(arr.dtype)
+    if name in _VIEW_DTYPES:   # an ml_dtypes array handed in by a caller
+        return arr.view(_VIEW_DTYPES[name][2]), name
+    return arr, name
 
 
 def _flatten_with_names(tree) -> Dict[str, np.ndarray]:
-    return {_name(path): _to_numpy(_name(path), leaf)
-            for path, leaf in _leaves(tree)}
+    """Each leaf as its host array on disk, by name."""
+    return {_name(path): _to_disk(leaf)[0] for path, leaf in _leaves(tree)}
 
 
-def _rebuild(tree, values: Dict[str, np.ndarray], path: Tuple = ()):
+def _host_copy(leaf):
+    """A copy of a leaf in host memory (tensors stay tensors)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf, copy=True)
+
+
+def _rebuild(tree, values: Dict[str, Any], path: Tuple = ()):
     """``tree``'s structure with each leaf replaced by ``values[name]``."""
     if tree is None:
         return None
@@ -92,31 +115,40 @@ def _rebuild(tree, values: Dict[str, np.ndarray], path: Tuple = ()):
         return {key: _rebuild(item, values, path + (key,))
                 for key, item in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(item, values, path + (i,))
-                          for i, item in enumerate(tree))
+        children = [_rebuild(child, values, path + (key,))
+                    for key, child in _children(tree)]
+        if _is_namedtuple(tree):
+            return type(tree)(*children)
+        return type(tree)(children)
     return values[_name(path)]
 
 
-def _numpy_dtype(leaf) -> Optional[np.dtype]:
-    """The numpy dtype of a ``like`` leaf (tensor or array), if it has one."""
-    import torch
-
-    if isinstance(leaf, torch.Tensor):
-        return torch.empty(0, dtype=leaf.dtype).numpy().dtype
-    return np.dtype(leaf.dtype) if hasattr(leaf, "dtype") else None
+def _restored(arr: np.ndarray, dtype: str, like):
+    """The array read from disk as ``like``'s kind of leaf and dtype: a
+    tensor on ``like``'s device, or a numpy array."""
+    t = torch.from_numpy(arr)
+    if dtype in _VIEW_DTYPES:
+        t = t.view(_VIEW_DTYPES[dtype][0])
+    if isinstance(like, torch.Tensor):
+        return t.to(device=like.device, dtype=like.dtype)
+    if dtype in _VIEW_DTYPES:   # numpy has no bfloat16 or float8
+        arr = t.to(torch.float32).numpy()
+    if hasattr(like, "dtype") and arr.dtype != np.dtype(like.dtype):
+        arr = arr.astype(like.dtype)
+    return arr
 
 
 def save_pytree(tree, directory: pathlib.Path,
                 extra: Optional[Dict] = None,
                 rate_limit_mbps: Optional[float] = None) -> None:
     directory = pathlib.Path(directory)
-    flat = _flatten_with_names(tree)
+    flat = {_name(path): _to_disk(leaf) for path, leaf in _leaves(tree)}
     tmp = directory.with_suffix(".tmp")
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     manifest = {"leaves": {}, "extra": extra or {}}
-    for name, arr in flat.items():
+    for name, (arr, dtype) in flat.items():
         fn = name.replace("/", "__") + ".npy"
         t0 = time.monotonic()
         np.save(tmp / fn, arr)
@@ -126,7 +158,7 @@ def save_pytree(tree, directory: pathlib.Path,
             if sleep > 0:
                 time.sleep(sleep)
         manifest["leaves"][name] = {
-            "file": fn, "dtype": str(arr.dtype), "shape": list(arr.shape)}
+            "file": fn, "dtype": dtype, "shape": list(arr.shape)}
     (tmp / "manifest.msgpack").write_bytes(_msgpack.packb(manifest))
     if directory.exists():
         shutil.rmtree(directory)
@@ -135,8 +167,8 @@ def save_pytree(tree, directory: pathlib.Path,
 
 def load_pytree(directory: pathlib.Path, like) -> Tuple[Any, Dict]:
     """Restore into the structure of ``like`` (a tree of arrays or
-    tensors), each leaf a numpy array of the ``like`` leaf's dtype.
-    Returns (tree, extra)."""
+    tensors), each leaf of the ``like`` leaf's dtype: a tensor on its
+    device, or a numpy array.  Returns (tree, extra)."""
     directory = pathlib.Path(directory)
     manifest = _msgpack.unpackb(
         (directory / "manifest.msgpack").read_bytes())
@@ -145,12 +177,8 @@ def load_pytree(directory: pathlib.Path, like) -> Tuple[Any, Dict]:
     for path, leaf in _leaves(like):
         name = _name(path)
         meta = leaves_meta[name]
-        _refuse_view_dtype(name, meta["dtype"])
-        arr = np.load(directory / meta["file"])
-        dtype = _numpy_dtype(leaf)
-        if dtype is not None and arr.dtype != dtype:
-            arr = arr.astype(dtype)
-        arrays[name] = arr
+        arrays[name] = _restored(np.load(directory / meta["file"]),
+                                 meta["dtype"], leaf)
     return _rebuild(like, arrays), manifest.get("extra", {})
 
 
@@ -179,8 +207,8 @@ class CheckpointManager:
         """Snapshot now (a host copy of every leaf), write in the
         background."""
         self.wait()
-        snapshot = _rebuild(tree, {name: arr.copy() for name, arr in
-                                   _flatten_with_names(tree).items()})
+        snapshot = _rebuild(tree, {_name(path): _host_copy(leaf)
+                                   for path, leaf in _leaves(tree)})
 
         def _write():
             self.save(step, snapshot, extra)

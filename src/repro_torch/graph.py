@@ -10,12 +10,17 @@ that the caller fills in place before a run, and returns one tensor,
 which the graph overwrites at every replay.
 
 A capture that fails raises; nothing here falls back to running the
-function eagerly.  The kernel wrappers count their launches in Python,
+function eagerly.  Python's garbage collector is run just before the
+capture and kept off during it: a dead reference cycle (autograd's
+non-reentrant checkpoints leave them after a training step) collected
+inside a capture runs finalizers that make CUDA calls a capture forbids,
+and the capture fails.  The kernel wrappers count their launches in Python,
 where a replay does not reach them, so each replay adds to every counter
 what the capture recorded (:func:`repro_torch.core.dispatch.uncounted`).
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional
 
@@ -63,8 +68,15 @@ class CapturedProgram:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
-            with uncounted() as launches, torch.cuda.graph(graph):
-                out = self._fn()
+            gc.collect()
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with uncounted() as launches, torch.cuda.graph(graph):
+                    out = self._fn()
+            finally:
+                if enabled:
+                    gc.enable()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
         self._graph, self._out, self.launches = graph, out, launches

@@ -9,6 +9,7 @@ computes.  Head layout is kv-major (``repeat_kv``), caches are
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import F32, einsum
 
@@ -32,12 +33,19 @@ def _causal_mask(scores: torch.Tensor, start: int) -> torch.Tensor:
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     chunk: int = 1024, causal: bool = True) -> torch.Tensor:
+                     chunk: int = 1024, causal: bool = True,
+                     remat_chunk: bool = True) -> torch.Tensor:
     """Chunked attention.  q: (B, Sq, H, Dh); k/v: (B, Sk, H, Dh).
 
     Scores are computed a q-chunk at a time, so the live score buffer is
     (B, H, chunk, Sk); ``Sq`` that ``chunk`` does not divide ends in one
-    shorter chunk, as in the reference.
+    shorter chunk, as in the reference.  ``remat_chunk`` recomputes each
+    chunk's scores and probabilities in the backward pass (a
+    non-reentrant checkpoint per chunk, which nests inside a layer's), so
+    no chunk's residuals are kept; it changes memory, not values, and
+    applies only where gradients are taken.  The recompute draws no
+    random numbers, so the checkpoint neither saves nor restores the RNG
+    state.
     """
     sq, dh = q.shape[1], q.shape[-1]
     scale = dh ** -0.5
@@ -54,6 +62,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         out = einsum("bhcs,bhsd->bhcd", probs, vT)
         return out.permute(0, 2, 1, 3)     # (B, C, H, Dh)
+
+    if remat_chunk and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        plain = one_chunk
+
+        def one_chunk(q_chunk: torch.Tensor, start: int) -> torch.Tensor:
+            return checkpoint(plain, q_chunk, start, use_reentrant=False,
+                              preserve_rng_state=False)
 
     if n_chunks == 1:
         return one_chunk(q, 0)

@@ -102,13 +102,25 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, d) stub embeddings -> encoder hidden."""
     pos = L.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device)
     x = frames + pos[None].to(frames.dtype)
-    for i in range(cfg.n_enc_layers):
-        lp = L.layer(params["encoder"], i)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + _mha(lp["attn"], cfg, h, h, causal=False)
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    for lp in L.layers(params["encoder"], cfg.n_enc_layers):
+        x = T.remat_call(cfg, _encoder_layer, lp, cfg, x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _encoder_layer(lp, cfg: ModelConfig, x):
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + _mha(lp["attn"], cfg, h, h, causal=False)
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+
+
+def _decoder_layer(lp, cfg: ModelConfig, x, enc_hidden):
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + _mha(lp["attn"], cfg, h, h, causal=True)
+    h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
+    x = x + _mha(lp["xattn"], cfg, h, enc_hidden, causal=False)
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
 
 
 def decode_train(params, cfg: ModelConfig, tokens,
@@ -116,14 +128,8 @@ def decode_train(params, cfg: ModelConfig, tokens,
     x = T.embed(params, cfg, tokens)
     pos = L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
     x = x + pos[None].to(x.dtype)
-    for i in range(cfg.n_layers):
-        lp = L.layer(params["decoder"], i)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + _mha(lp["attn"], cfg, h, h, causal=True)
-        h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
-        x = x + _mha(lp["xattn"], cfg, h, enc_hidden, causal=False)
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    for lp in L.layers(params["decoder"], cfg.n_layers):
+        x = T.remat_call(cfg, _decoder_layer, lp, cfg, x, enc_hidden)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -44,12 +44,19 @@ def _shared_block(shared, cfg: ModelConfig, x, positions):
                         shared["mlp"]["wd"])
 
 
+def _hybrid_layer(lp, cfg: ModelConfig, x, positions, shared, attend: bool):
+    """One remat unit, as the reference's scan body: the shared block
+    where it applies, then the layer's Mamba block."""
+    if attend:
+        x = _shared_block(shared, cfg, x, positions)
+    return S.mamba_block(lp, cfg, x)
+
+
 def forward(params, cfg: ModelConfig, x, positions) -> torch.Tensor:
     every = max(cfg.attn_every, 1)
-    for i in range(cfg.n_layers):
-        if i % every == 0:
-            x = _shared_block(params["shared"], cfg, x, positions)
-        x = S.mamba_block(L.layer(params["layers"], i), cfg, x)
+    for i, lp in enumerate(L.layers(params["layers"], cfg.n_layers)):
+        x = T.remat_call(cfg, _hybrid_layer, lp, cfg, x, positions,
+                         params["shared"], i % every == 0)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -16,7 +16,7 @@ reference pytree against it).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -33,16 +33,39 @@ def torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` on every tensor of a nested dict (``jax.tree.map``'s part)."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` on every leaf of a nested dict and the matching leaves of
+    ``rest`` (same structure), keeping ``tree``'s structure
+    (``jax.tree.map``'s part); leaves are visited in ``jax.tree``'s order,
+    dict keys sorted."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        out = {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+               for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a nested dict in ``jax.tree``'s order (keys sorted);
+    anything but a dict is a leaf (an Adafactor moment tuple too)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in tree_leaves(tree[key])]
+    return [tree]
 
 
 def layer(stack: Dict, i: int) -> Dict:
     """Layer ``i`` of a stacked parameter (or cache) tree: views, no copy."""
     return tree_map(lambda t: t[i], stack)
+
+
+def layers(stack: Dict, n: int) -> List[Dict]:
+    """All ``n`` layers of a stacked parameter tree: the views
+    :func:`layer` gives, taken by one ``unbind`` per leaf, so that the
+    backward pass stacks the layers' gradients once (``t[i]`` per layer
+    writes a gradient of the whole stack for each layer)."""
+    parts = tree_map(lambda t: t.unbind(0), stack)
+    return [tree_map(lambda p, i=i: p[i], parts) for i in range(n)]
 
 
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,11 @@ methods are the reference facade's without the ``params`` argument:
   input_specs(shape)               -> {name: meta tensor} for a named shape
 
 Batches are dicts of tensors or arrays; they are moved to the model's
-device.  The parameters have ``requires_grad`` off: nothing here takes
-gradients (training is a later slice).
+device.  The parameters have ``requires_grad`` off, as every serving path
+wants them; training turns it on (``model.requires_grad_(True)`` in
+:func:`repro_torch.train.build_train_step`), and then ``cfg.remat``
+applies in every layer stack (:func:`repro_torch.models.transformer.
+remat_call`).
 """
 from __future__ import annotations
 

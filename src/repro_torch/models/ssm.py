@@ -177,8 +177,8 @@ def mamba_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
 
 def forward(params, cfg: ModelConfig, x) -> torch.Tensor:
     """The Mamba stack on embedded inputs; returns the final hidden."""
-    for i in range(cfg.n_layers):
-        x = mamba_block(L.layer(params["layers"], i), cfg, x)
+    for lp in L.layers(params["layers"], cfg.n_layers):
+        x = T.remat_call(cfg, mamba_block, lp, cfg, x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -15,10 +15,15 @@ instead of relying on the order of duplicate writes: see :func:`moe_route`.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (
@@ -321,11 +326,47 @@ def _layer(p, cfg: ModelConfig, x, positions):
     return x + _ffn(p, cfg, h)
 
 
+#: The matrix products ``cfg.remat == "dots"`` keeps (``jnp.einsum``'s
+#: ``dot_general`` is what ``dots_with_no_batch_dims_saveable`` saves;
+#: ``torch.einsum`` lowers to these).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_call(cfg: ModelConfig, fn: Callable, lp: Dict, *args):
+    """``fn(lp, *args)``, one layer's body, under ``cfg.remat`` (the
+    reference's ``_maybe_remat``): ``"none"`` calls it; ``"full"`` keeps
+    only its inputs and recomputes the rest in the backward pass
+    (``nothing_saveable``); ``"dots"`` keeps its matrix products too.
+    Remat changes memory, not values, and applies only where gradients
+    are taken: with gradients off or frozen parameters it is the plain
+    call.  No model draws random numbers, so the RNG state is neither
+    saved nor restored.  The checkpoints leave reference cycles behind
+    a backward pass, which :class:`repro_torch.graph.CapturedProgram`
+    collects before a capture."""
+    if (cfg.remat == "none" or not torch.is_grad_enabled()
+            or not any(t.requires_grad for t in L.tree_leaves(lp))):
+        return fn(lp, *args)
+    kw = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
+    return checkpoint(fn, lp, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def forward(params, cfg: ModelConfig, x_embed, positions) -> torch.Tensor:
     """Run the layer stack on embedded inputs; returns final hidden."""
     x = x_embed
-    for i in range(cfg.n_layers):
-        x = _layer(L.layer(params["layers"], i), cfg, x, positions)
+    for lp in L.layers(params["layers"], cfg.n_layers):
+        x = remat_call(cfg, _layer, lp, cfg, x, positions)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

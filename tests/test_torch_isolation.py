@@ -43,7 +43,11 @@ assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
         "repro_torch.models.model", "repro_torch.models.convert",
         "repro_torch.serving", "repro_torch.serving.kv_cache",
         "repro_torch.serving.engine", "repro_torch.serving.engine_graph",
-        "repro_torch.launch", "repro_torch.launch.serve"
+        "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.optim", "repro_torch.optim.optimizers",
+        "repro_torch.optim.grad_compress", "repro_torch.optim.convert",
+        "repro_torch.data", "repro_torch.data.pipeline",
+        "repro_torch.train.step", "repro_torch.launch.train"
         } <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -69,7 +73,7 @@ from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
 from repro_torch.train import make_stream_plant_model
 from repro_torch import configs
 from repro_torch.models import build, params_from_jax
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.serving import (EngineConfig, GraphServingEngine,
                                  ServingEngine)
 import numpy as np
@@ -92,6 +96,8 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: params_from_jax(configs.get_smoke("mamba2-1.3b"), {}),
              lambda: serve.main(["--engine", "graph"]),
              lambda: serve.main([]),
+             lambda: train.train_loop("qwen3-8b", steps=1),
+             lambda: train.main(["--steps", "1"]),
              lambda: GraphServingEngine(cpu_model, 4, EngineConfig()),
              lambda: ServingEngine(cpu_model, 4, EngineConfig())):
     try:
@@ -121,6 +127,19 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     proc = _run(NO_CARD, env={"CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-1] == "raised"
+
+
+def test_train_launcher_refuses_without_a_card():
+    """``python -m repro_torch.launch.train`` without ``--device cpu``
+    exits non-zero on a machine with no card, and trains nothing."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps", "1"],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+             "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+    assert "final loss" not in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

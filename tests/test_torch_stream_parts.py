@@ -559,20 +559,142 @@ def test_msgpack_codec_refuses_what_it_does_not_cover():
         _msgpack.unpackb(b"\x01\x02")               # trailing bytes
 
 
-def test_bfloat16_leaves_raise_type_error(tmp_path):
-    with pytest.raises(TypeError, match="item 5"):
-        save_pytree({"w": torch.ones(2, dtype=torch.bfloat16)},
-                    tmp_path / "bf16")
-    assert not (tmp_path / "bf16").exists()
+#: The reduced-float leaf dtypes both packages store as unsigned views.
+VIEW_DTYPES = {"bfloat16": torch.bfloat16,
+               "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+def _view_leaf(dtype: torch.dtype) -> torch.Tensor:
+    """A (3, 5) leaf of ``dtype`` with signed zeros, subnormals and the
+    largest finite value among normal numbers."""
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn(3, 5, generator=g)
+    w[0, :3] = torch.tensor([-0.0, 2.0 ** -9, torch.finfo(dtype).max])
+    return w.to(dtype)
+
+
+def _port_state(kind: str, w: torch.Tensor):
+    """The port's tree of a train loop's checkpoint: ``w`` as a parameter
+    and an ``OptState`` of ``kind`` over it."""
+    from repro_torch.optim import OptState
+
+    b = torch.arange(4, dtype=torch.float32)
+    f32 = {"b": b + 1, "w": w.float() * 3}
+    if kind == "adamw":
+        opt = OptState(torch.tensor(3, dtype=torch.int32), f32,
+                       {"b": b * 2, "w": w.float()},
+                       {"b": b * 4, "w": w.float() ** 2})
+    else:
+        opt = OptState(torch.tensor(3, dtype=torch.int32), f32, None,
+                       {"b": (b * 4,), "w": (w.float()[:, 0],
+                                             w.float()[0])})
+    return {"params": {"w": w, "b": b}, "opt": opt}
+
+
+def _as_reference(tree):
+    """The same tree in the reference's terms: numpy leaves (``ml_dtypes``
+    for bfloat16 and float8) and the reference's ``OptState``."""
     ml_dtypes = pytest.importorskip("ml_dtypes")
-    with pytest.raises(TypeError, match="item 5"):
-        save_pytree({"w": np.ones(2, dtype=ml_dtypes.bfloat16)},
-                    tmp_path / "bf16")
-    ref = pytest.importorskip("repro.checkpoint")
-    ref.save_pytree({"w": np.ones(2, dtype=ml_dtypes.bfloat16)},
-                    tmp_path / "ref_bf16")
-    with pytest.raises(TypeError, match="item 5"):
-        load_pytree(tmp_path / "ref_bf16", {"w": np.ones(2)})
+    ref_optim = pytest.importorskip("repro.optim")
+
+    def leaf(t):
+        for name, dtype in VIEW_DTYPES.items():
+            if t.dtype == dtype:
+                bits = ckpt_mod._to_disk(t)[0]
+                return bits.view(getattr(ml_dtypes, name))
+        return t.numpy()
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "_fields"):
+            return ref_optim.OptState(*(conv(v) for v in x))
+        if isinstance(x, tuple):
+            return tuple(conv(v) for v in x)
+        return leaf(x)
+    return conv(tree)
+
+
+def _bits(leaf) -> np.ndarray:
+    """A leaf's bits: the unsigned view of a reduced float, else the
+    array itself."""
+    return ckpt_mod._to_disk(leaf)[0]
+
+
+@pytest.mark.parametrize("dtype", sorted(VIEW_DTYPES))
+@pytest.mark.parametrize("direction", ["port_to_port", "reference_to_port",
+                                       "port_to_reference"])
+def test_reduced_float_leaves_round_trip(tmp_path, direction, dtype):
+    """bfloat16 and float8_e4m3fn leaves, beside an ``OptState``, restore
+    bit for bit within the port and across the two packages both ways,
+    under the reference's manifest dtype strings and leaf names."""
+    tree = _port_state("adamw", _view_leaf(VIEW_DTYPES[dtype]))
+    if direction == "reference_to_port":
+        ref = pytest.importorskip("repro.checkpoint")
+        ref.save_pytree(_as_reference(tree), tmp_path / "s",
+                        extra={"k": 1})
+    else:
+        save_pytree(tree, tmp_path / "s", extra={"k": 1})
+    manifest = _msgpack.unpackb(
+        (tmp_path / "s" / "manifest.msgpack").read_bytes())
+    assert manifest["leaves"]["params/w"]["dtype"] == dtype
+    assert sorted(manifest["leaves"]) == [
+        "opt/.m/b", "opt/.m/w", "opt/.master/b", "opt/.master/w",
+        "opt/.step", "opt/.v/b", "opt/.v/w", "params/b", "params/w"]
+    if direction == "port_to_reference":
+        ref = pytest.importorskip("repro.checkpoint.ckpt")
+        like = _as_reference(tree)
+        got, extra = ref.load_pytree(tmp_path / "s", like)
+        assert type(got["opt"]).__module__ == "repro.optim.optimizers"
+        got_flat = ref._flatten_with_names(got)
+        want_flat = ref._flatten_with_names(like)
+    else:
+        like = ckpt_mod._rebuild(tree, {
+            ckpt_mod._name(p): torch.zeros_like(t)
+            for p, t in ckpt_mod._leaves(tree)})
+        got, extra = load_pytree(tmp_path / "s", like)
+        assert type(got["opt"]).__name__ == "OptState"
+        assert got["params"]["w"].dtype == VIEW_DTYPES[dtype]
+        got_flat = {ckpt_mod._name(p): t for p, t in ckpt_mod._leaves(got)}
+        want_flat = {ckpt_mod._name(p): t
+                     for p, t in ckpt_mod._leaves(tree)}
+    assert extra == {"k": 1}
+    assert list(got_flat) == list(want_flat)
+    for name in want_flat:
+        assert got_flat[name].dtype == want_flat[name].dtype, name
+        np.testing.assert_array_equal(_bits(got_flat[name]),
+                                      _bits(want_flat[name]), err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+def test_optstate_leaf_names_equal_reference(kind):
+    """A NamedTuple's children are named ``.<field>`` as
+    ``jax.tree_util`` names them; plain tuples keep their index; a
+    ``None`` field holds no leaf."""
+    ref = pytest.importorskip("repro.checkpoint.ckpt")
+    tree = _port_state(kind, _view_leaf(torch.bfloat16))
+    mine = ckpt_mod._flatten_with_names(tree)
+    theirs = ref._flatten_with_names(_as_reference(tree))
+    assert list(mine) == list(theirs)
+    if kind == "adafactor":
+        assert "opt/.v/w/1" in mine and not any(".m/" in n for n in mine)
+    for name in mine:
+        np.testing.assert_array_equal(mine[name], theirs[name].view(
+            mine[name].dtype))
+
+
+def test_namedtuple_rebuilds_with_its_fields(tmp_path):
+    """A restored NamedTuple is built from its fields positionally."""
+    tree = _port_state("adafactor", torch.ones(3, 5))
+    save_pytree(tree, tmp_path / "s")
+    got, _ = load_pytree(tmp_path / "s", tree)
+    assert got["opt"]._fields == tree["opt"]._fields
+    assert got["opt"].m is None
+    assert isinstance(got["opt"].v["w"], tuple)
+    torch.testing.assert_close(got["opt"].v["w"][1], tree["opt"].v["w"][1],
+                               rtol=0, atol=0)
 
 
 def test_keep_last_k_and_async_save(tmp_path):
@@ -588,5 +710,5 @@ def test_keep_last_k_and_async_save(tmp_path):
                                             "t": torch.zeros(3)})
     assert step == 5 and extra == {"k": 1}
     np.testing.assert_array_equal(tree["t"], [0.0, 1.0, 2.0])
-    assert tree["t"].dtype == np.float32        # the like leaf's dtype
+    assert tree["t"].dtype == torch.float32     # the like leaf's dtype
     assert mgr.all_steps() == [4, 5]
