@@ -189,6 +189,22 @@ before it and read just after:
              plant through the port's ``CBPCoordinator`` on the card, its
              assertions unchanged, one greedy launch per reconfiguration.
              The launch counts stay 0 over (a)-(c).
+17. shard  — the sweep's (manager, mix) grid and the static search's
+             workloads sharded over ``repro_torch.distributed.use_devices(
+             [cuda:0] * N)`` (the split runs block by block on the one
+             card): the 4096-mix sweep and ``fig5_potential``'s 640
+             workloads on 2 shards, the 32-mix sweep and one
+             ``run_timeline`` (CBP over the 32 mixes, 20 ms) on 7, each
+             against its unsharded run on the card: discrete outputs
+             (units, prefetch, active, top-k indices) exactly equal, floats
+             within rtol 1e-12; walls, the shard grid, the largest
+             differences and the greedy's launches (``launches_shard``).
+
+After every phase a ``memory`` line gives the device memory still
+allocated and what a collector pass then frees (memory that reference
+cycles held), with the port's classes among what it found; after phase
+15 a ``drop`` line gives the memory allocated with the collector off
+before and after dropping the engines, then the model.
 
 Its second path is the paper's kernel-level binding: the UCP block
 planner (``repro_torch.runtime.cbp_runtime.plan_kernel_blocks``) splits an
@@ -231,8 +247,9 @@ bound; the greedy's at the bucketed sweep's own boundary inputs, with its
 launches on every path, 0 in phase 14, phase 15's as ``launches_serve``,
 phase 16(d)'s as ``launches_train_binding``, and the shapes of every
 path's inputs it was held to; every kernel's ``launches_train``, its
-launches over phase 16(a)-(c)).  Any failed check exits non-zero before
-the last line, which is ``{"ok": true, "device": {...}}`` on success.
+launches over phase 16(a)-(c), and ``launches_shard``, over phase 17).
+Any failed check exits non-zero before the last line, which is ``{"ok":
+true, "device": {...}}`` on success.
 Without a CUDA card, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -2348,6 +2365,7 @@ def serve_full(card: str) -> dict:
     the host engine once and the device engine cold, warm and for one
     profiled interval; then the device engine with CBP off."""
     import dataclasses
+    import gc
 
     import numpy as np
     import torch
@@ -2457,7 +2475,25 @@ def serve_full(card: str) -> dict:
                        "launches": {k: v for k, v in o_counts.items() if v},
                        "requests_with_cbp_on_tokens": same_tokens}}
     emit(card, phase="serve", case="qwen3-8b_full", **out)
-    del model, host, graph, off
+    # What dropping the engines, then the model, frees with the collector
+    # off: memory a reference cycle holds stays allocated.
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        sync()
+        before = torch.cuda.memory_allocated()
+        del host, graph, off
+        engines = torch.cuda.memory_allocated()
+        del model
+        dropped = torch.cuda.memory_allocated()
+    finally:
+        if enabled:
+            gc.enable()
+    emit(card, phase="serve", case="drop", collector="off",
+         allocated_before_bytes=before,
+         after_dropping_engines_bytes=engines,
+         after_dropping_model_bytes=dropped)
+    out["drop"] = {"before": before, "engines": engines, "model": dropped}
     torch.cuda.empty_cache()
     return out
 
@@ -2870,6 +2906,180 @@ def train_phase(card: str) -> tuple:
          adafactor_warm_step_s=full["adafactor"]["warm_step_s"],
          binding_greedy_launches=binding["greedy_launches"])
     return counts, binding
+
+
+# --------------------------------------------------------------------- #
+# phase 17: the sweep's and the static search's shards
+# --------------------------------------------------------------------- #
+
+#: Shards forced on the one card (``use_devices([cuda:0] * N)``): the full
+#: sweep and Fig. 5's study on 2, the 32-mix sweep and one
+#: ``run_timeline`` on 7 (a prime count).  Discrete outputs exactly equal
+#: the unsharded run's, floats within SHARD_RTOL.
+SHARD_FULL, SHARD_SMALL = 2, 7
+SHARD_RTOL = 1e-12
+#: ``run_timeline``'s timeline (the reference tests' 20 ms): each of the 7
+#: blocks pays the host dispatch of every slot, ~2 s at 100 ms.
+SHARD_TIMELINE_MS = 20.0
+
+
+def shard_diff(pairs, what: str) -> dict:
+    """Hold each (label, sharded, unsharded) of ``pairs``: integer and
+    boolean arrays equal, floats finite and within SHARD_RTOL.  Returns
+    the largest absolute and relative float differences."""
+    import numpy as np
+
+    worst = {"max_abs_diff": 0.0, "max_rel_diff": 0.0}
+    for label, x, y in pairs:
+        x, y = np.asarray(x), np.asarray(y)
+        check(x.shape == y.shape, f"{what}: {label} shape {x.shape} != "
+              f"{y.shape}")
+        if x.dtype.kind in "biu":
+            check(np.array_equal(x, y), f"{what}: {label} differs")
+            continue
+        check(np.isfinite(x).all() and np.allclose(
+            x, y, rtol=SHARD_RTOL, atol=0.0),
+            f"{what}: {label} beyond rtol {SHARD_RTOL}")
+        diff = np.abs(x - y)
+        worst["max_abs_diff"] = max(worst["max_abs_diff"],
+                                    float(diff.max(initial=0.0)))
+        worst["max_rel_diff"] = max(worst["max_rel_diff"], float(
+            (diff / np.where(y == 0, 1.0, np.abs(y))).max(initial=0.0)))
+    return worst
+
+
+def sweep_pairs(got, want):
+    pairs = [("baseline", got.baseline_ipc, want.baseline_ipc)]
+    for name in want.manager_names:
+        a, b = got.final_alloc[name], want.final_alloc[name]
+        pairs += [(f"{name} ipc", got.ipc[name], want.ipc[name]),
+                  (f"{name} cache_units", a.cache_units, b.cache_units),
+                  (f"{name} bandwidth", a.bandwidth, b.bandwidth),
+                  (f"{name} prefetch_on", a.prefetch_on, b.prefetch_on)]
+    return pairs
+
+
+def sharding_phase(card: str) -> dict:
+    """Phase 17: the (manager, mix) grid of ``run_sweep`` and the workload
+    axis of ``search_static`` sharded over ``use_devices([card] * N)``,
+    each against its unsharded run on the card (run first, outside the
+    count): the 4096-mix sweep and ``fig5_potential`` on 2 shards, the
+    32-mix sweep and one ``run_timeline`` (CBP over the 32 mixes, 20 ms)
+    on 7.
+    The launch counts are reset just before the sharded runs and read
+    just after; returns them."""
+    import torch
+    from repro_torch import distributed
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.core.types import CBPParams
+    from repro_torch.sim import (random_mixes, random_workloads, run_sweep,
+                                 search_static, timeline)
+    from repro_torch.sim.sweep import BatchedCMPPlant, _manager_spec
+
+    t0 = time.perf_counter()
+    study = load_static_golden()["study"][0]
+    full_mixes = random_mixes(SCALE_MIXES, N_APPS, seed=SEED)
+    small_mixes = random_mixes(SMALL_MIXES, N_APPS, seed=SEED)
+    workloads = random_workloads(study["n_workloads"], study["apps"],
+                                 study["seed"])
+    plant = BatchedCMPPlant(small_mixes, device=DEVICE)
+    spec = _manager_spec(plant, "CBP", SHARD_TIMELINE_MS, CBPParams())
+    tl_kw = dict(total_units=plant.total_cache_units,
+                 total_bandwidth=plant.total_bandwidth)
+    n_mgr = len(EXPECTED_GEOMEANS)
+    cases = {   # name: (shards, (groups, rows) of the split, run)
+        "sweep_4096": (SHARD_FULL, (n_mgr, SCALE_MIXES), lambda: run_sweep(
+            full_mixes, total_ms=TOTAL_MS, device=DEVICE)),
+        "fig5_potential": (SHARD_FULL, (1, len(workloads)),
+                           lambda: search_static(workloads, k=study["k"],
+                                                 device=DEVICE)),
+        "sweep_32": (SHARD_SMALL, (n_mgr, SMALL_MIXES), lambda: run_sweep(
+            small_mixes, total_ms=TOTAL_MS, device=DEVICE)),
+        "run_timeline": (SHARD_SMALL, (1, SMALL_MIXES),
+                         lambda: timeline.run_timeline(
+            plant.params, spec.schedule, variant=spec.variant,
+            init_units=spec.init_units, init_bandwidth=spec.init_bandwidth,
+            init_prefetch=spec.init_prefetch,
+            cache_dynamic=spec.cache_dynamic,
+            bandwidth_dynamic=spec.bandwidth_dynamic,
+            cache_partitioned=spec.cache_partitioned,
+            bandwidth_partitioned=spec.bandwidth_partitioned, **tl_kw)),
+    }
+    # On one card the default device list gives one shard: these runs are
+    # the unsharded ones (run_timeline's is the K = 1 run_timelines).
+    unsharded = {name: synced_wall(fn) for name, (_n, _g, fn)
+                 in cases.items()}
+
+    rows = {}
+    sync()
+    reset_launch_counts()
+    for name, (n, (groups, n_rows), fn) in cases.items():
+        with distributed.use_devices([torch.device(DEVICE, 0)
+                                      if on_card() else DEVICE] * n):
+            grid = distributed.grid_shard_counts(groups, n_rows)
+            (got, wall), counts = counted(lambda: synced_wall(fn))
+        want, want_wall = unsharded[name]
+        if name == "fig5_potential":
+            pairs = [pair for fam in want.family_names for pair in (
+                (f"{fam} index", got.topk_index[fam], want.topk_index[fam]),
+                (f"{fam} ws", got.topk_ws[fam], want.topk_ws[fam]))]
+            pairs.append(("baseline", got.baseline_ipc, want.baseline_ipc))
+        elif name == "run_timeline":
+            pairs = [(f, getattr(got, f), getattr(want, f)) for f in (
+                "ipc_acc", "cache_units", "bandwidth", "prefetch_on",
+                "active")] + [("w_acc", got.w_acc, want.w_acc)]
+        else:
+            pairs = sweep_pairs(got, want)
+        worst = shard_diff(pairs, f"shard {name}")
+        greedy = counts.get("lookahead_greedy", 0)
+        check(greedy > 0 or name == "fig5_potential",
+              f"shard {name}: the greedy never launched")
+        rows[name] = {"shards": n, "grid": list(grid), "wall_s": wall,
+                      "unsharded_wall_s": want_wall,
+                      "greedy_launches": greedy, **worst}
+        emit(card, phase="shard", case=name, **rows[name],
+             rtol=SHARD_RTOL, discrete_exact=True)
+    counts = launch_counts()
+    check(counts["lookahead_greedy"] > 0,
+          "shard: the greedy never launched")
+    emit(card, phase="shard", case="summary",
+         seconds=time.perf_counter() - t0, launches=counts,
+         max_abs_diff=max(r["max_abs_diff"] for r in rows.values()))
+    return counts
+
+
+def sync() -> None:
+    import torch
+
+    if on_card():
+        torch.cuda.synchronize()
+
+
+def memory_probe(card: str, after: str) -> None:
+    """Device memory that reference cycles hold once a phase is over: the
+    bytes allocated, then a collector pass that saves what it finds (the
+    port's classes among it counted by name), then the bytes it freed."""
+    import collections
+    import gc
+
+    import torch
+
+    sync()
+    held = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        owners = collections.Counter(
+            type(o).__qualname__ for o in gc.garbage
+            if type(o).__module__.startswith("repro_torch"))
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    gc.collect()
+    sync()
+    emit(card, phase="memory", after=after, allocated_bytes=held,
+         freed_by_collect_bytes=held - torch.cuda.memory_allocated(),
+         cycle_owners=dict(owners))
 
 
 # --------------------------------------------------------------------- #
@@ -3370,23 +3580,30 @@ def main() -> int:
         G = boundary_groups(TOTAL_MS)
         shapes = sorted({7 * SMALL_MIXES, G * SMALL_MIXES,
                          7 * SCALE_MIXES, G * SCALE_MIXES})
-        kern = kernel_phase(card, shapes)
-        small, _, flat_small = sweep_phase(card)
-        stacked, counts, flat_scale = scale_phase(card, small)
-        record_knobs, full_knobs, budget = plan_phase(card)
-        path_rows, path_counts = kernels_phase(card, record_knobs,
-                                               full_knobs, budget)
+        def probed(name, value):
+            memory_probe(card, name)
+            return value
+
+        kern = probed("kernel", kernel_phase(card, shapes))
+        small, _, flat_small = probed("sweep", sweep_phase(card))
+        stacked, counts, flat_scale = probed("scale",
+                                             scale_phase(card, small))
+        record_knobs, full_knobs, budget = probed("plan", plan_phase(card))
+        path_rows, path_counts = probed("kernels", kernels_phase(
+            card, record_knobs, full_knobs, budget))
         launches_segment = segment_phase(card, stacked)
         del stacked
-        launches_grid = grid_phase(card)
-        launches_managers = managers_phase(card)
-        characterization_phase(card)
-        launches_plant = plant_phase(card)
-        launches_static = static_phase(card)
-        launches_stream = stream_phase(card)
-        launches_models = models_phase(card)
-        launches_serve = serve_phase(card)
-        launches_train, binding = train_phase(card)
+        memory_probe(card, "segment")
+        launches_grid = probed("grid", grid_phase(card))
+        launches_managers = probed("managers", managers_phase(card))
+        probed("characterization", characterization_phase(card))
+        launches_plant = probed("plant", plant_phase(card))
+        launches_static = probed("static", static_phase(card))
+        launches_stream = probed("stream", stream_phase(card))
+        launches_models = probed("models", models_phase(card))
+        launches_serve = probed("serve", serve_phase(card))
+        launches_train, binding = probed("train", train_phase(card))
+        launches_shard = probed("shard", sharding_phase(card))
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -3423,6 +3640,7 @@ def main() -> int:
         }, *path_rows]
         for row in kernels:
             row["launches_train"] = launches_train.get(row["name"], 0)
+            row["launches_shard"] = launches_shard.get(row["name"], 0)
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

@@ -22,24 +22,28 @@ def numpy_order_sum(vec: torch.Tensor) -> torch.Tensor:
     r3)) + ((r4 + r5) + (r6 + r7))`` and then the tail; recursive halving
     on a multiple of 8 beyond.
     """
-    def psum(lo: int, m: int) -> torch.Tensor:
-        if m < 8:
-            acc = vec[..., lo:lo + 1]
-            for i in range(lo + 1, lo + m):
-                acc = acc + vec[..., i:i + 1]
-            return acc
-        if m <= 128:
-            r = vec[..., lo:lo + 8]
-            i = 8
-            while i < m - (m % 8):
-                r = r + vec[..., lo + i:lo + i + 8]
-                i += 8
-            while r.shape[-1] > 1:        # the pairwise fold of the lanes
-                r = r[..., 0::2] + r[..., 1::2]
-            for k in range(lo + i, lo + m):
-                r = r + vec[..., k:k + 1]
-            return r
-        m2 = (m // 2) - ((m // 2) % 8)
-        return psum(lo, m2) + psum(lo + m2, m - m2)
+    return _psum(vec, 0, vec.shape[-1])
 
-    return psum(0, vec.shape[-1])
+
+def _psum(vec: torch.Tensor, lo: int, m: int) -> torch.Tensor:
+    """``vec[..., lo:lo + m]`` summed in numpy's order.  A module function,
+    not a closure: a nested function that calls itself holds its own cell,
+    a reference cycle that would keep ``vec`` until a collector pass."""
+    if m < 8:
+        acc = vec[..., lo:lo + 1]
+        for i in range(lo + 1, lo + m):
+            acc = acc + vec[..., i:i + 1]
+        return acc
+    if m <= 128:
+        r = vec[..., lo:lo + 8]
+        i = 8
+        while i < m - (m % 8):
+            r = r + vec[..., lo + i:lo + i + 8]
+            i += 8
+        while r.shape[-1] > 1:        # the pairwise fold of the lanes
+            r = r[..., 0::2] + r[..., 1::2]
+        for k in range(lo + i, lo + m):
+            r = r + vec[..., k:k + 1]
+        return r
+    m2 = (m // 2) - ((m // 2) % 8)
+    return _psum(vec, lo, m2) + _psum(vec, lo + m2, m - m2)

@@ -61,16 +61,17 @@ shape replays only.
 
 ``n_groups`` splits streams, slots and pages into independent engine
 groups, all on the model's one device: the reference shards the groups
-over a device grid (``shard_grid``, ROADMAP Queue A item 7), and with more
-than one visible card this engine still runs every group on its own
-device.  The encoder-decoder family is refused (its cache carries a
-batchless ``enc_len`` leaf).
+over a device grid (``shard_grid``; ROADMAP Queue A item 1, the serving
+groups over devices), and with more than one visible card this engine
+still runs every group on the model's device.  The encoder-decoder
+family is refused (its cache carries a batchless ``enc_len`` leaf).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +125,16 @@ def _plan_grid(n_groups: int, n_devices: int = 1
             if key > best_key:
                 best_key, best = key, (K, M, a, b)
     return best
+
+
+def _weak_call(obj, method: str, arg) -> Callable[[], torch.Tensor]:
+    """``lambda: obj.method(arg)`` holding ``obj`` and ``arg`` weakly.  The
+    engine keeps each run and the run its programs, so a program whose
+    function held either would close a reference cycle: a dropped engine
+    would keep its model, KV cache and graph memory pools until a
+    collector pass."""
+    obj_ref, arg_ref = weakref.ref(obj), weakref.ref(arg)
+    return lambda: getattr(obj_ref(), method)(arg_ref())
 
 
 def admission_body(c: Dict[str, torch.Tensor],
@@ -411,9 +422,9 @@ class GraphServingEngine:
         inputs."""
         program = getattr(run, which)
         if program is None:
-            fn, counter = ((lambda: self._interval(run), SERVE_GRAPH_REPLAYS)
-                           if which == "steps" else
-                           (lambda: self._reconfigure(run),
+            fn, counter = ((_weak_call(self, "_interval", run),
+                            SERVE_GRAPH_REPLAYS) if which == "steps" else
+                           (_weak_call(self, "_reconfigure", run),
                             SERVE_RECONFIG_REPLAYS))
             saved = {k: v.clone() for k, v in run.q.items()}
             saved_kv = ({k: v.clone() for k, v in run.kv.items()}

@@ -52,6 +52,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import distributed
 from repro_torch.device import F64, DeviceLike, resolve_device
 from repro_torch.numpy_order import numpy_order_sum
 from repro_torch.sim import memsys
@@ -451,10 +452,12 @@ def _family_tables(grid: StaticGrid, w_pad: int, k: int,
                    chunk_elements: int) -> Dict[str, np.ndarray]:
     """Chunk one family's config grid into the scan tables it runs over.
 
-    The reference's chunk rule, with ``w_pad`` the workload count (one
-    device): the chunk shape depends only on this family's grid, so the
-    stacked and per-family searches scan the same tables, and ties across
-    chunks resolve as in the reference.
+    The reference's chunk rule, with ``w_pad`` the padded global workload
+    count (the workload count on one device; under sharding every block
+    gets the same global value, not its own count): the chunk shape
+    depends only on this family's grid, so the stacked, per-family and
+    sharded searches scan the same tables, and ties across chunks resolve
+    as in the reference.
     """
     n = grid.n_apps
     chunk = max(k, min(len(grid.valid),
@@ -622,6 +625,7 @@ def search_static(
     chunk_elements: int = CHUNK_ELEMENTS,
     stack_families: bool = True,
     multi_objective: bool = False,
+    shard: Optional[bool] = None,
 ) -> StaticSearchResult:
     """Best static (cache, bandwidth, prefetch) allocation per workload.
 
@@ -646,6 +650,13 @@ def search_static(
         ascending down the slots) and ``topk_fairness`` is populated;
         ``k`` doubles as the front capacity.  Min-fairness is
         ``min(speedup) / max(speedup)`` per workload.
+      shard: ``None`` shards the workload axis over the devices of
+        :func:`repro_torch.distributed.device_list`
+        (:func:`~repro_torch.distributed.row_shard_count`, padded with
+        copies of the last workload); ``False`` runs on ``device`` alone.
+        Every block scans the chunks of the padded global workload count,
+        as the reference's sharded search does, and the one baseline
+        evaluation is shared.
 
     Returns:
       :class:`StaticSearchResult` of numpy arrays; weighted speedups are
@@ -678,21 +689,44 @@ def search_static(
                 f"family {name!r} has zero feasible configurations")
         grids[name] = grid
     p, base = _model_inputs(stacked, options, iters, dev)
+    n_shards = 1 if shard is False else distributed.row_shard_count(w, dev)
+    w_pad = -(-w // n_shards) * n_shards
+    tables = {name: _family_tables(grid, w_pad, k, chunk_elements)
+              for name, grid in grids.items()}
 
-    def scan(name):
-        return _family_scan(
-            p, base, grids[name],
-            _family_tables(grids[name], w, k, chunk_elements), k, iters,
+    def scan_block(p_b, base_b, names):
+        return {name: _family_scan(
+            p_b, base_b, grids[name], tables[name], k, iters,
             int(fams[name].bandwidth_banks), multi_objective)
+            for name in names}
+
+    def scan(names):
+        """``names``' top-k as ``(W, k)`` tensors on ``dev``."""
+        if n_shards == 1:
+            return scan_block(p, base, names)
+        pad = {key: torch.cat([v, v[-1:].expand(w_pad - w, *v.shape[1:])])
+               for key, v in {**p, "baseline": base}.items()}
+
+        def worker(block, _replicated):
+            tops = scan_block({f: block[f] for f in p}, block["baseline"],
+                              names)
+            return {name: {key: t for key, t in zip(("ws", "idx", "f"), top)
+                           if t is not None}
+                    for name, top in tops.items()}
+
+        out = distributed.shard_rows(worker, n_shards, dev)(pad, {})
+        return {name: (o["ws"][:w], o["idx"][:w],
+                       o["f"][:w] if "f" in o else None)
+                for name, o in out.items()}
 
     if stack_families:
-        tops = [scan(name) for name in grids]
+        tops = scan(list(grids))
         host = [torch.stack(part).cpu().numpy() if part[0] is not None
-                else part for part in zip(*tops)]
+                else part for part in zip(*tops.values())]
         out = {name: tuple(h[fi] for h in host)
                for fi, name in enumerate(grids)}
     else:
-        out = {name: _to_host(scan(name)) for name in grids}
+        out = {name: _to_host(scan([name])[name]) for name in grids}
 
     return StaticSearchResult(
         family_names=list(fams),

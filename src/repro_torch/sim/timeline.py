@@ -29,8 +29,16 @@ the same argument the buckets equal a single stacked table bit for bit
 (``tests/test_torch_segment.py`` forces one bucket to compare).
 :func:`run_timelines_async` leaves the results on the device
 (:class:`PendingTimelines`, with a CUDA event on the card), which is what
-lets the streaming sweep generate the next chunk meanwhile.  Single
-device only; sharding is not ported yet.
+lets the streaming sweep generate the next chunk meanwhile.
+
+Sharding, as the reference's ``shard_grid``: the (manager, mix) grid
+splits over the devices of :func:`repro_torch.distributed.device_list`
+(:func:`~repro_torch.distributed.grid_shard_counts`), both axes padded
+with copies of the last manager and mix; each block runs the
+single-device body above on its own device, in its own length buckets,
+and the blocks' results gather onto the parameters' device.  Rows never
+interact, so a sharded run equals the unsharded one
+(``tests/test_torch_distributed.py``).  One H100 gives one shard.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import distributed
 from repro_torch.core.bandwidth_controller import (
     allocate_bandwidth,
     check_bandwidth_floor,
@@ -318,6 +327,7 @@ def run_timelines_async(
     atd_decay=0.5,
     bandwidth_delay_decay=0.5,
     iters: int = FIXED_POINT_ITERS,
+    shard: Optional[bool] = None,
 ) -> PendingTimelines:
     """Run a whole manager set's timelines on the parameters' device.
 
@@ -328,17 +338,21 @@ def run_timelines_async(
       min_ways / speedup_threshold / min_bandwidth_allocation / atd_decay /
         bandwidth_delay_decay: scalars or per-mix arrays (trailing
         singleton axes allowed), shared by every manager.
+      shard: ``None`` shards the (manager, mix) grid over the devices of
+        :func:`repro_torch.distributed.device_list` (padding both axes);
+        ``False`` runs on the parameters' device alone.
 
     The managers run in buckets of equal table length
     (:func:`_length_buckets`), each over its own slot count, so a
     short-table manager (a fully static one has one slot) is not evaluated
     on every slot of the longest table.  The buckets share the slot loop:
     a slot evaluates the rows of the buckets still running, and the greedy
-    launches once per slot on every bucket's reallocating rows.
+    launches once per slot on every bucket's reallocating rows.  Under
+    sharding each block does so over its own managers and mixes.
 
     Returns:
-      A :class:`PendingTimelines` whose tensors stay on the device; its
-      ``result()`` brings them to the host once.
+      A :class:`PendingTimelines` whose tensors stay on the parameters'
+      device; its ``result()`` brings them to the host once.
     """
     if not specs:
         raise ValueError("need at least one TimelineSpec")
@@ -354,6 +368,94 @@ def run_timelines_async(
             np.asarray(min_ways, dtype=np.int64) * n > int(total_units)):
         raise ValueError("min_ways * n exceeds capacity")
 
+    fixed = dict(total_units=total_units, total_bandwidth=total_bandwidth,
+                 llc_extra_cycles=llc_extra_cycles, iters=iters)
+    tunables = dict(min_ways=min_ways, speedup_threshold=speedup_threshold,
+                    min_bandwidth_allocation=min_bandwidth_allocation,
+                    atd_decay=atd_decay,
+                    bandwidth_delay_decay=bandwidth_delay_decay)
+    dev = params["cpi_base"].device
+    grid_shards = ((1, 1) if shard is False
+                   else distributed.grid_shard_counts(len(specs), M, dev))
+    if grid_shards == (1, 1):
+        return _run_stacked(params, specs, **fixed, **tunables)
+    return _run_sharded(params, specs, grid_shards, fixed, tunables)
+
+
+def _run_sharded(params: Dict[str, torch.Tensor],
+                 specs: Sequence[TimelineSpec], grid_shards: Tuple[int, int],
+                 fixed: dict, tunables: dict) -> PendingTimelines:
+    """The (manager, mix) grid in ``a x b`` blocks, each through
+    :func:`_run_stacked` on its own device
+    (:func:`repro_torch.distributed.shard_grid`).  K and M pad with copies
+    of the last manager and mix (the reference's ``_pad_axis``); the
+    padding rows are dropped after the gather."""
+    a, b = grid_shards
+    K = len(specs)
+    M, n = params["cpi_base"].shape
+    k_pad = -(-K // a) * a
+    m_pad = -(-M // b) * b
+
+    def pad_mixes(x):
+        """Right-pad the leading (mix) axis to ``m_pad`` rows with copies
+        of the last."""
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x[-1:].expand(m_pad - M, *x.shape[1:])])
+        return np.concatenate([x, np.repeat(x[-1:], m_pad - M, axis=0)])
+
+    padded = list(specs) + [specs[-1]] * (k_pad - K)
+    grid = {"p_" + k: pad_mixes(v).expand(k_pad, m_pad, n)
+            for k, v in params.items()}
+    for field in ("init_units", "init_bandwidth", "init_prefetch"):
+        grid[field] = np.stack([pad_mixes(np.broadcast_to(
+            np.asarray(getattr(s, field)), (M, n))) for s in padded])
+    for name, value in tunables.items():
+        grid[name] = np.broadcast_to(pad_mixes(_per_mix(value, M, None)),
+                                     (k_pad, m_pad, 1))
+
+    def worker(grid_b, group_b, replicated):
+        block = [dataclasses.replace(
+            s, init_units=grid_b["init_units"][i],
+            init_bandwidth=grid_b["init_bandwidth"][i],
+            init_prefetch=grid_b["init_prefetch"][i])
+            for i, s in enumerate(group_b["specs"])]
+        pending = _run_stacked(
+            {k[2:]: v[0] for k, v in grid_b.items() if k.startswith("p_")},
+            block, **replicated,
+            **{name: grid_b[name][0] for name in tunables})
+        return {k: v[pending._rows] for k, v in pending._stacked.items()}
+
+    dev = params["cpi_base"].device
+    out = distributed.shard_grid(worker, grid_shards, dev)(
+        grid, {"specs": padded}, fixed)
+    stacked = {k: v[:K, :M] for k, v in out.items()}
+    event = None
+    if dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    return PendingTimelines(
+        device_results=[{k: v[i] for k, v in stacked.items()}
+                        for i in range(K)],
+        w_accs=[_spec_weight(s) for s in specs],
+        event=event, _stacked=stacked, _rows=list(range(K)))
+
+
+def _run_stacked(
+    params: Dict[str, torch.Tensor],
+    specs: Sequence[TimelineSpec],
+    *,
+    total_units: int,
+    total_bandwidth: float,
+    llc_extra_cycles: float,
+    min_ways,
+    speedup_threshold,
+    min_bandwidth_allocation,
+    atd_decay,
+    bandwidth_delay_decay,
+    iters: int,
+) -> PendingTimelines:
+    """The single-device body of :func:`run_timelines_async`."""
+    M, n = params["cpi_base"].shape
     tables = [segment_table(s.schedule) for s in specs]
     accum = [RUN if s.variant == "cppf" else None for s in specs]
     K = len(specs)
@@ -553,6 +655,12 @@ def run_timelines_async(
         event=event, _stacked=stacked, _rows=rows)
 
 
+def _spec_weight(spec: TimelineSpec) -> float:
+    """The accumulated weight (ms) of one spec's own table."""
+    return _weight(segment_table(spec.schedule),
+                   RUN if spec.variant == "cppf" else None)
+
+
 def _weight(table, only: Optional[int]) -> float:
     """The accumulated weight (ms) of one manager's own table, so it does
     not depend on where stacking placed its rows."""
@@ -560,3 +668,54 @@ def _weight(table, only: Optional[int]) -> float:
     return float(np.where((kinds == only) if only is not None
                           else np.ones_like(kinds, dtype=bool),
                           durations, 0.0).sum())
+
+
+def run_timeline(
+    params: Dict[str, torch.Tensor],
+    schedule: Sequence[ScheduleSegment],
+    *,
+    variant: str = "fig8",
+    init_units: np.ndarray,
+    init_bandwidth: np.ndarray,
+    init_prefetch: np.ndarray,
+    cache_dynamic: bool,
+    bandwidth_dynamic: bool,
+    cache_partitioned: bool,
+    bandwidth_partitioned: bool,
+    total_units: int,
+    total_bandwidth: float,
+    llc_extra_cycles: float = 0.0,
+    min_ways=4,
+    speedup_threshold=1.05,
+    min_bandwidth_allocation=1.0,
+    atd_decay=0.5,
+    bandwidth_delay_decay=0.5,
+    iters: int = FIXED_POINT_ITERS,
+    shard: Optional[bool] = None,
+) -> TimelineResult:
+    """One manager's whole timeline: the ``K = 1`` case of
+    :func:`run_timelines`, with the same arguments."""
+    spec = TimelineSpec(
+        schedule=schedule,
+        variant=variant,
+        cache_dynamic=bool(cache_dynamic),
+        bandwidth_dynamic=bool(bandwidth_dynamic),
+        cache_partitioned=bool(cache_partitioned),
+        bandwidth_partitioned=bool(bandwidth_partitioned),
+        init_units=init_units,
+        init_bandwidth=init_bandwidth,
+        init_prefetch=init_prefetch,
+    )
+    return run_timelines(
+        params, [spec],
+        total_units=total_units,
+        total_bandwidth=total_bandwidth,
+        llc_extra_cycles=llc_extra_cycles,
+        min_ways=min_ways,
+        speedup_threshold=speedup_threshold,
+        min_bandwidth_allocation=min_bandwidth_allocation,
+        atd_decay=atd_decay,
+        bandwidth_delay_decay=bandwidth_delay_decay,
+        iters=iters,
+        shard=shard,
+    )[0]

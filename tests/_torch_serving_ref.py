@@ -21,6 +21,7 @@ import json
 import os
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -128,7 +129,10 @@ def record_margins(engine, top2) -> dict:
     :func:`top2_torch`."""
     margins: dict = {}
     step = {}
-    decode, touch = engine._decode, engine._touch_pages
+    # The engine is held weakly: the spies live on it, so a strong
+    # reference would make a cycle that keeps its KV cache after a drop.
+    decode, touch = engine._decode, engine._touch_pages.__func__
+    engine_ref = weakref.ref(engine)
 
     def spy_decode(*args):
         logits, cache = decode(*args)
@@ -140,7 +144,7 @@ def record_margins(engine, top2) -> dict:
             first, second = step["top2"][req.slot]
             margins.setdefault(req.rid, []).append(
                 (float(first - second), float(first)))
-        return touch(req, pos)
+        return touch(engine_ref(), req, pos)
 
     engine._decode, engine._touch_pages = spy_decode, spy_touch
     return margins
