@@ -199,6 +199,27 @@ before it and read just after:
              (units, prefetch, active, top-k indices) exactly equal, floats
              within rtol 1e-12; walls, the shard grid, the largest
              differences and the greedy's launches (``launches_shard``).
+             Then ``GraphServingEngine``'s groups sharded over forced
+             blocks, each block with its own KV cache and CUDA graphs:
+             (e) the reference's sharded-engine fixture
+             (``tests/test_serving_jax.py``'s ``_PARITY_SCRIPT``) with the
+             qwen3-8b smoke model, 8 groups on 8 blocks and 16 on 4 (also
+             on a forced (4, 4, 2, 2) grid, whose blocks hold groups that
+             are not contiguous), each against the unsharded card run and
+             the port's CPU sharded run; (f) qwen3-8b at its full config
+             at phase 15(b)'s engine configuration, 2 groups on 2 blocks
+             against the unsharded 2-group engine, 16 requests.  Tokens
+             equal under the token rule, every other discrete output
+             exactly, slot shares and queue waits within 1e-6; one
+             interval replay a block an interval, one reconfiguration
+             replay and one greedy launch a reconfiguration a block runs
+             (+1 a block in the warm-up before its capture); the largest
+             logit difference between one decode of the whole batch and
+             the same rows in the blocks' batches; for (f) the plan, ms a
+             step (host wall less capture seconds), tokens/s, capture
+             seconds per block and peak memory (below the unsharded peak
+             plus half the weights: the blocks share the model's).  Its
+             greedy launches count in ``launches_shard``.
 
 After every phase a ``memory`` line gives the device memory still
 allocated and what a collector pass then frees (memory that reference
@@ -2959,15 +2980,304 @@ def sweep_pairs(got, want):
     return pairs
 
 
+#: (e) The reference's sharded-engine fixture (``tests/test_serving_jax.
+#: py``'s ``_PARITY_SCRIPT``: 40 requests, seed 7, 16 slots, 64 pages of
+#: 4 tokens, a reconfiguration every 8 steps) with the qwen3-8b smoke
+#: model (float32, built on the CPU and moved), one group a stream:
+#: name -> (streams = groups, forced blocks, forced grid or None).  The
+#: reference's plan never splits a block's groups (it always has K = a or
+#: b = 1), so the last case forces a (4, 4, 2, 2) grid: block 0 holds
+#: groups 0, 1, 4 and 5.
+SHARD_SERVE_CASES = {
+    "parity_8_on_8": (8, 8, None),
+    "parity_16_on_4": (16, 4, None),
+    "parity_16_on_4_grid_4x4": (16, 4, (4, 4, 2, 2)),
+}
+#: (f) qwen3-8b at its full config at phase 15(b)'s engine configuration,
+#: 2 groups on 2 forced blocks against the unsharded 2-group engine; the
+#: first 16 of phase 15(b)'s 32 requests.
+SHARD_FULL_GROUPS, SHARD_FULL_REQUESTS = 2, 16
+#: Decode steps of the batch-split logit comparison.
+SHARD_LOGIT_STEPS = 4
+#: Discrete outputs of the device engine, held exactly.
+SERVE_DISCRETE = ("steps", "reconfigs", "intervals", "partition",
+                  "readahead", "occupancy", "evictions", "tokens_done",
+                  "demand_hits", "demand_misses", "prefetch_hits",
+                  "prefetch_misses")
+
+
+def block_devices(n: int) -> list:
+    """``n`` blocks forced onto the one card (or the CPU, rehearsing)."""
+    import torch
+
+    return [torch.device(DEVICE, 0) if on_card() else torch.device(DEVICE)
+            ] * n
+
+
+def graph_run(model, n_streams, n_groups, ecfg, reqs, devices, grid=None,
+              max_steps=SERVE_MAX_STEPS):
+    """A ``GraphServingEngine`` planned over ``devices`` (``grid`` forces
+    its plan) runs ``reqs``; the engine, its host wall (captures
+    included) and the peak memory of the run (None off the card)."""
+    from unittest import mock
+
+    import torch
+    from repro_torch import distributed
+    from repro_torch.serving import GraphServingEngine, engine_graph
+
+    plan = (mock.patch.object(engine_graph, "_plan_grid",
+                              lambda *_: grid) if grid
+            else contextlib.nullcontext())
+    with distributed.use_devices(devices), plan:
+        eng = GraphServingEngine(model, n_streams, ecfg, n_groups=n_groups,
+                                 device=model.device.type)
+    if on_card():
+        torch.cuda.reset_peak_memory_stats()
+    _, wall = synced_wall(lambda: eng.run(reqs, max_steps=max_steps))
+    peak = torch.cuda.max_memory_allocated() if on_card() else None
+    return eng, wall, peak
+
+
+def shard_outputs(eng, reqs) -> dict:
+    """What a sharded serving run is held to: tokens, the discrete
+    outputs and the float32 shares and waits."""
+    import numpy as np
+
+    return {"tokens": [r.generated for r in reqs],
+            "rids": [r.rid for r in reqs],
+            **{k: np.asarray(getattr(eng, k)) for k in SERVE_DISCRETE + (
+                "slot_share", "queue_wait")}}
+
+
+def serve_shard_gate(got: dict, want: dict, margins, what: str) -> dict:
+    """Hold a sharded run's outputs (:func:`shard_outputs`) to another
+    run's: every request's tokens equal, or excused by the token rule on
+    the host engine's margins (``margins()``, run only when some request
+    differs); the discrete outputs exactly equal (the schedule depends on
+    lengths alone, so it holds where tokens are excused too);
+    ``slot_share`` and ``queue_wait`` within SERVE_SHARE_RTOL.  Returns
+    the counts of differing and excused requests and the largest share
+    and wait distances."""
+    import numpy as np
+
+    ref = serve_ref()
+    differ = [a != b for a, b in zip(got["tokens"], want["tokens"])]
+    excused = 0
+    if any(differ):
+        m = margins()
+        verdicts = [ref.token_rule(a, b, m.get(rid, [])) for a, b, rid in
+                    zip(got["tokens"], want["tokens"], want["rids"])]
+        check("differ" not in verdicts,
+              f"{what}: tokens differ in {verdicts.count('differ')} "
+              "requests")
+        excused = verdicts.count("excused")
+    for key in SERVE_DISCRETE:
+        check(np.array_equal(got[key], want[key]), f"{what}: {key} differs")
+    worst = {}
+    for key in ("slot_share", "queue_wait"):
+        check(np.allclose(got[key], want[key], rtol=SERVE_SHARE_RTOL,
+                          atol=0),
+              f"{what}: {key} beyond rtol {SERVE_SHARE_RTOL}")
+        worst[f"{key}_max_abs_diff"] = float(
+            np.abs(got[key] - want[key]).max(initial=0))
+    return {"requests_differing": sum(differ), "excused": excused, **worst}
+
+
+def host_margins(model, n_streams, ecfg, make):
+    """The host engine's margins on ``make()``'s requests, as a thunk."""
+    from repro_torch.serving import ServingEngine
+
+    def run():
+        ref = serve_ref()
+        host = ServingEngine(model, n_streams, ecfg,
+                             device=model.device.type)
+        margins = ref.record_margins(host, ref.top2_torch)
+        host.run(make(), max_steps=SERVE_MAX_STEPS)
+        return margins
+
+    return run
+
+
+def split_logit_diff(model, batch: int, blocks: int, seed: int = 0
+                     ) -> float:
+    """The largest logit difference between one decode of ``batch`` rows
+    and the same rows decoded in ``blocks`` blocks (the batch a sharded
+    engine's block decodes), over SHARD_LOGIT_STEPS steps from empty
+    caches, on the model's device: the rounding a smaller batch may bring
+    (another GEMM kernel)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    dev = model.device
+    whole = model.init_cache(batch, SHARD_LOGIT_STEPS, dtype=torch.float32)
+    part = batch // blocks
+    parts = [model.init_cache(part, SHARD_LOGIT_STEPS, dtype=torch.float32)
+             for _ in range(blocks)]
+    worst = 0.0
+    for step in range(SHARD_LOGIT_STEPS):
+        tokens = torch.randint(0, model.cfg.vocab_size, (batch, 1),
+                               generator=gen).to(dev)
+        pos = torch.full((batch,), step, dtype=torch.int32, device=dev)
+        full, _ = model.decode_step(whole, tokens, pos, inplace=True)
+        split = torch.cat([model.decode_step(
+            parts[i], tokens[i * part:(i + 1) * part],
+            pos[i * part:(i + 1) * part], inplace=True)[0]
+            for i in range(blocks)])
+        check(bool(torch.isfinite(full).all()), "split logits: not finite")
+        worst = max(worst, float((full.float() - split.float()).abs().max()))
+    return worst
+
+
+def serve_shards(card: str) -> dict:
+    """Phase 17 (e) and (f): the serving engine's groups sharded over
+    forced blocks on the one card.  Each sharded run's references run
+    first (the unsharded card run, and for (e) the port's CPU sharded
+    run); the launch counts are reset just before each sharded run and
+    read just after; returns their sums."""
+    import copy
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.models import build
+    from repro_torch.serving import EngineConfig, Request
+
+    ref = serve_ref()
+    total: dict = {}
+
+    def sharded(fn):
+        sync()
+        reset_launch_counts()
+        out = fn()
+        sync()
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, counts
+
+    def launch_rule(eng, counts, what):
+        warmups = sum(k.endswith("reconfigure_warmup")
+                      for k in eng.capture_seconds)
+        blocks = len(eng.block_groups)
+        check(counts["serve_graph"] == eng.intervals * blocks
+              and counts["serve_reconfig"] == sum(eng.block_reconfigs)
+              and counts["lookahead_greedy"]
+              == sum(eng.block_reconfigs) + warmups,
+              f"{what}: launches {counts} for {eng.intervals} intervals on "
+              f"{blocks} blocks, block reconfigurations "
+              f"{eng.block_reconfigs}, {warmups} warm-ups")
+
+    # (e) the reference's fixture, smoke model
+    cfg = configs.get_smoke("qwen3-8b")
+    cpu = build(cfg, device="cpu", seed=0)
+    card_model = copy.deepcopy(cpu).to(DEVICE)
+    ecfg = ref.parity_config(EngineConfig)
+    for name, (n, blocks, grid) in SHARD_SERVE_CASES.items():
+        def make(n=n):
+            return ref.parity_requests(Request, cfg.vocab_size, n)
+
+        reqs = make()
+        want = shard_outputs(graph_run(card_model, n, n, ecfg, reqs,
+                                       block_devices(1), max_steps=300)[0],
+                             reqs)
+        reqs = make()
+        on_cpu = shard_outputs(graph_run(
+            cpu, n, n, ecfg, reqs, [torch.device("cpu")] * blocks, grid,
+            max_steps=300)[0], reqs)
+        reqs = make()
+        (eng, wall, _), counts = sharded(lambda: graph_run(
+            card_model, n, n, ecfg, reqs, block_devices(blocks), grid,
+            max_steps=300))
+        check(len(eng.block_groups) == blocks
+              and (grid is None or eng.block_groups[0] == [0, 1, 4, 5]),
+              f"shard serve {name}: blocks {eng.block_groups}")
+        launch_rule(eng, counts, f"shard serve {name}")
+        got = shard_outputs(eng, reqs)
+        margins = host_margins(card_model, n, ecfg, make)
+        emit(card, phase="shard", case=f"serve_{name}", blocks=blocks,
+             grid=list(eng.grid), block_groups=eng.block_groups,
+             wall_s=wall, steps=eng.steps, reconfigs=eng.reconfigs,
+             block_reconfigs=eng.block_reconfigs,
+             idle_steps=eng.idle_steps,
+             launches={k: v for k, v in counts.items() if v},
+             vs_unsharded=serve_shard_gate(
+                 got, want, margins, f"shard serve {name} vs unsharded"),
+             vs_cpu_sharded=serve_shard_gate(
+                 got, on_cpu, margins, f"shard serve {name} vs the CPU"),
+             split_logit_max_abs_diff=split_logit_diff(
+                 card_model, ecfg.batch_slots, blocks))
+        del eng
+    del card_model, cpu
+
+    # (f) qwen3-8b at its full config, 2 groups on 2 blocks
+    full_cfg = configs.get("qwen3-8b")
+    if on_card():
+        torch.cuda.empty_cache()
+    model = build(full_cfg, DEVICE, seed=0)
+    ecfg = serve_config()
+
+    def make_full():
+        return serve_requests(full_cfg.vocab_size)[:SHARD_FULL_REQUESTS]
+
+    def rates(eng, reqs, wall, peak) -> dict:
+        capture = sum(eng.capture_seconds.values())
+        gen = sum(len(r.generated) for r in reqs)
+        return {"grid": list(eng.grid), "devices": [str(d) for d in
+                                                      eng.devices],
+                "wall_s": wall, "capture_s": capture, "steps": eng.steps,
+                "ms_per_step": 1e3 * (wall - capture) / eng.steps,
+                "generated_tokens_per_s": gen / (wall - capture),
+                "capture_seconds": eng.capture_seconds,
+                "block_reconfigs": eng.block_reconfigs,
+                "idle_steps": eng.idle_steps, "peak_bytes": peak}
+
+    sync()
+    reqs = make_full()
+    eng, wall, w_peak = graph_run(model, SERVE_STREAMS, SHARD_FULL_GROUPS,
+                                  ecfg, reqs, block_devices(1))
+    unsharded = rates(eng, reqs, wall, w_peak)
+    want = shard_outputs(eng, reqs)
+    del eng
+    reqs = make_full()
+    (eng, wall, peak), counts = sharded(lambda: graph_run(
+        model, SERVE_STREAMS, SHARD_FULL_GROUPS, ecfg, reqs,
+        block_devices(SHARD_FULL_GROUPS)))
+    check(len(eng.block_groups) == SHARD_FULL_GROUPS,
+          f"shard serve full: blocks {eng.block_groups}")
+    launch_rule(eng, counts, "shard serve full")
+    out = {"config": full_cfg.name, "requests": len(reqs),
+           "weight_bytes": weight_bytes(model),
+           "unsharded": unsharded,
+           "sharded": {**rates(eng, reqs, wall, peak),
+                       "launches": {k: v for k, v in counts.items() if v}},
+           "vs_unsharded": serve_shard_gate(
+               shard_outputs(eng, reqs), want,
+               host_margins(model, SERVE_STREAMS, ecfg, make_full),
+               "shard serve full vs unsharded")}
+    del eng
+    out["split_logit_max_abs_diff"] = split_logit_diff(
+        model, SERVE_SLOTS, SHARD_FULL_GROUPS)
+    s_peak = out["sharded"]["peak_bytes"]
+    check(not on_card() or s_peak < w_peak + out["weight_bytes"] / 2,
+          f"shard serve full: peak {s_peak} against {w_peak} unsharded: "
+          "the blocks do not share the weights")
+    emit(card, phase="shard", case="serve_qwen3-8b_full", **out)
+    del model
+    sync()
+    if on_card():
+        torch.cuda.empty_cache()
+    return total
+
+
 def sharding_phase(card: str) -> dict:
     """Phase 17: the (manager, mix) grid of ``run_sweep`` and the workload
     axis of ``search_static`` sharded over ``use_devices([card] * N)``,
     each against its unsharded run on the card (run first, outside the
     count): the 4096-mix sweep and ``fig5_potential`` on 2 shards, the
     32-mix sweep and one ``run_timeline`` (CBP over the 32 mixes, 20 ms)
-    on 7.
+    on 7; then the serving engine's groups (:func:`serve_shards`).
     The launch counts are reset just before the sharded runs and read
-    just after; returns them."""
+    just after; returns their sums."""
     import torch
     from repro_torch import distributed
     from repro_torch.core.dispatch import launch_counts, reset_launch_counts
@@ -3040,10 +3350,15 @@ def sharding_phase(card: str) -> dict:
         emit(card, phase="shard", case=name, **rows[name],
              rtol=SHARD_RTOL, discrete_exact=True)
     counts = launch_counts()
+    serving = serve_shards(card)
+    check(serving.get("lookahead_greedy", 0) > 0,
+          "shard: the serving blocks' greedy never launched")
+    counts = {k: v + serving.get(k, 0) for k, v in counts.items()}
     check(counts["lookahead_greedy"] > 0,
           "shard: the greedy never launched")
     emit(card, phase="shard", case="summary",
          seconds=time.perf_counter() - t0, launches=counts,
+         serving_launches=serving,
          max_abs_diff=max(r["max_abs_diff"] for r in rows.values()))
     return counts
 

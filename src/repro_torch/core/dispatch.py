@@ -44,13 +44,13 @@ SCHEDULE_GRAPH_REPLAYS = LaunchCounter("schedule_graph")
 
 #: Runs of the serving graph engine's interval program
 #: (:class:`repro_torch.serving.engine_graph.GraphServingEngine`): one per
-#: reconfiguration interval, a CUDA-graph replay on the card and an eager
-#: run on the CPU (the port's counterpart of the reference engine's
-#: ``record_dispatch``).
+#: block of groups per reconfiguration interval, a CUDA-graph replay on
+#: the card and an eager run on the CPU (the port's counterpart of the
+#: reference engine's ``record_dispatch``, one an interval at one block).
 SERVE_GRAPH_REPLAYS = LaunchCounter("serve_graph")
 
 #: Runs of the serving graph engine's reconfiguration program: one per
-#: reconfiguration, after the interval program.
+#: reconfiguration a block runs, after its interval program.
 SERVE_RECONFIG_REPLAYS = LaunchCounter("serve_reconfig")
 
 

@@ -29,6 +29,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def same_device(a: Union[str, torch.device],
+                b: Union[str, torch.device]) -> bool:
+    """Whether ``a`` and ``b`` name one device, index included; a bare
+    ``"cuda"`` is the current card."""
+    def whole(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return whole(a) == whole(b)
+
+
 def as_f64(x, device: Optional[torch.device]) -> torch.Tensor:
     """A float64 tensor on ``device`` (numpy arrays, scalars, tensors)."""
     return torch.as_tensor(x, dtype=F64, device=device)

@@ -2,10 +2,10 @@
 graph and replayed (the port's counterpart of a jitted JAX program).
 
 :class:`CapturedProgram` runs its function once eagerly on a side stream
-(first-use set-up such as a kernel's shared-memory attribute happens
-there, outside the capture), captures it into one
-``torch.cuda.CUDAGraph``, and from then on each :meth:`~CapturedProgram.
-run` is one replay.  The function reads its inputs from static tensors
+of its device (first-use set-up such as a kernel's shared-memory
+attribute happens there, outside the capture), captures it on that
+stream into one ``torch.cuda.CUDAGraph``, and from then on each
+:meth:`~CapturedProgram.run` is one replay on that device.  The function reads its inputs from static tensors
 that the caller fills in place before a run, and returns one tensor,
 which the graph overwrites at every replay.
 
@@ -55,8 +55,11 @@ class CapturedProgram:
         return self._graph is not None
 
     def capture(self) -> None:
-        """Warm up on a side stream, then capture ``fn`` (raises if the
-        capture fails; the program stays uncaptured)."""
+        """Warm up on a side stream of the program's device, then capture
+        ``fn`` on that stream (raises if the capture fails; the program
+        stays uncaptured).  Not on ``torch.cuda.graph``'s default capture
+        stream: that is made once, on the device current at its first
+        use, and a capture there of another card's work fails."""
         with torch.cuda.device(self.device):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -72,7 +75,8 @@ class CapturedProgram:
             enabled = gc.isenabled()
             gc.disable()
             try:
-                with uncounted() as launches, torch.cuda.graph(graph):
+                with uncounted() as launches, torch.cuda.graph(
+                        graph, stream=side):
                     out = self._fn()
             finally:
                 if enabled:
@@ -83,11 +87,25 @@ class CapturedProgram:
         self.seconds = {"warmup": t1 - t0, "capture": t2 - t1}
 
     def run(self) -> torch.Tensor:
-        """One replay (capturing first if needed); returns the output
-        tensor, valid until the next run."""
+        """One replay (capturing first if needed), counted; returns the
+        output tensor, valid until the next run."""
         if self._graph is None:
             self.capture()
-        self._graph.replay()
+        out = self.replay()
+        self.record()
+        return out
+
+    def replay(self) -> torch.Tensor:
+        """One replay of the captured graph on the program's device,
+        whichever device is current, not counted: threads may replay
+        programs of several cards at once (a large graph's launch holds
+        its host thread for most of its run), and count them with
+        :meth:`record` afterwards, from one thread."""
+        with torch.cuda.device(self.device):
+            self._graph.replay()
+        return self._out
+
+    def record(self) -> None:
+        """Count one replay and the kernel launches it made."""
         record_launches(self.launches)
         self._replays.record()
-        return self._out

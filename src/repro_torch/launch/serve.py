@@ -11,7 +11,10 @@ full config on the card, with random weights from seed 0.
 ``--engine graph`` swaps in the device engine
 (:class:`~repro_torch.serving.GraphServingEngine`: one CUDA-graph replay
 per reconfiguration interval on the card, eager on the CPU); ``--groups
-G`` splits its streams into G independent groups, all on the one device.
+G`` splits its streams into G independent groups, sharded over the
+visible cards (``CUDA_VISIBLE_DEVICES`` chooses them), as the reference's
+``--groups`` shards them over its devices; it prints the planned grid
+and the device of each block.
 """
 from __future__ import annotations
 
@@ -63,8 +66,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="host = per-token Python loop; graph = device "
                          "programs, one CUDA-graph replay an interval")
     ap.add_argument("--groups", type=int, default=1,
-                    help="stream groups for --engine graph (all on the "
-                         "one device)")
+                    help="stream groups for --engine graph, sharded "
+                         "over the visible cards")
     ap.add_argument("--full", action="store_true",
                     help="full (non-smoke) config, on the card")
     ap.add_argument("--device", default=None,
@@ -104,6 +107,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         partition = engine.pool.partition
         hit_rate = [engine.pool.stats[s].hit_rate
                     for s in range(args.streams)]
+    if args.engine == "graph":
+        K, M, a, b = engine.grid
+        print(f"  grid K={K} M={M} a={a} b={b}: groups "
+              f"{engine.block_groups} on "
+              f"{', '.join(str(d) for d in engine.devices)}")
     for s in range(args.streams):
         print(f"  stream {s}: pages={int(partition[s]):3d} "
               f"hit-rate={hit_rate[s]:5.1%} "

@@ -49,7 +49,7 @@ from repro_torch.core.bandwidth_controller import (
     check_bandwidth_floor,
 )
 from repro_torch.core.prefetch_controller import throttle_decision
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.models.model import Model
 from repro_torch.serving.kv_cache import PagedKVPool
 
@@ -80,9 +80,9 @@ class EngineConfig:
 
 def check_model_device(model: Model, device: DeviceLike) -> None:
     """Resolve an engine's ``device`` (``None``: the card, raising without
-    one) and require the model to be there."""
+    one) and require the model to be there, index included."""
     dev = resolve_device(device)
-    if model.device.type != dev.type:
+    if not same_device(model.device, dev):
         raise ValueError(f"the model is on {model.device}, the engine on "
                          f"{dev}: build the model on the engine's device")
 

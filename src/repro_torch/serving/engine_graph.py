@@ -60,22 +60,39 @@ so the state is kept before and put back after.  A run with the same
 shape replays only.
 
 ``n_groups`` splits streams, slots and pages into independent engine
-groups, all on the model's one device: the reference shards the groups
-over a device grid (``shard_grid``; ROADMAP Queue A item 1, the serving
-groups over devices), and with more than one visible card this engine
-still runs every group on the model's device.  The encoder-decoder
-family is refused (its cache carries a batchless ``enc_len`` leaf).
+groups, sharded over devices as the reference shards them
+(``shard_grid``): the groups form a (K, M) grid planned over
+:func:`repro_torch.distributed.device_list` (:func:`_plan_grid`, the
+reference's plan), group ``g`` at ``(g // M, g % M)``, and block ``(i,
+j)`` of its ``(a, b)`` split runs on device ``i * b + j`` of the list.
+Unlike the reference, which splits and gathers the whole state every
+interval, each block keeps its own queue state, KV cache and pair of
+programs resident on its device for the run, and the queue state is
+gathered into group order once, at the end.  A block on the model's
+device runs the model itself (N blocks forced onto one card share its
+weights); a block elsewhere runs a replica of it, built once per
+engine.  Each interval every block's interval program is launched
+first, from a thread a card where the blocks span several cards, then
+each block's pair of flags is read (one host read a block, so blocks on
+different cards overlap); a block replays its own
+reconfiguration program when one of its groups advanced the whole
+interval.  One card and no forced list plan ``(n_groups, 1, 1, 1)``:
+one block, the unsharded engine.  The encoder-decoder family is refused
+(its cache carries a batchless ``enc_len`` leaf).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import distributed
 from repro_torch.core.bandwidth_controller import (
     allocate_bandwidth,
     check_bandwidth_floor,
@@ -86,7 +103,7 @@ from repro_torch.core.dispatch import (
     SERVE_RECONFIG_REPLAYS,
 )
 from repro_torch.core.prefetch_controller import throttle_decision
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, same_device
 from repro_torch.graph import CapturedProgram
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import (
@@ -111,9 +128,9 @@ def _divisors(n: int) -> List[int]:
 def _plan_grid(n_groups: int, n_devices: int = 1
                ) -> Tuple[int, int, int, int]:
     """Arrange ``n_groups`` on a (K, M) grid sharded (a, b) ways over
-    ``n_devices`` (the reference's plan; the engine runs on one device,
-    so it plans ``(n_groups, 1, 1, 1)``): among plans using the most
-    devices, the most balanced mesh wins, shard counts dividing K and M."""
+    ``n_devices`` (the reference's plan): among plans using the most
+    devices, the most balanced mesh wins, shard counts dividing K and M
+    (one device plans ``(n_groups, 1, 1, 1)``)."""
     best, best_key = (n_groups, 1, 1, 1), (1, 1)
     for K in _divisors(n_groups):
         M = n_groups // K
@@ -125,6 +142,28 @@ def _plan_grid(n_groups: int, n_devices: int = 1
             if key > best_key:
                 best_key, best = key, (K, M, a, b)
     return best
+
+
+def _block_groups(K: int, M: int, a: int, b: int) -> List[List[int]]:
+    """The groups of each block of the (K, M) grid split (a, b) ways, in
+    device order (block ``(i, j)`` is device ``i * b + j``), each block's
+    groups in row-major (k, m) order: not contiguous in ``g`` where a
+    block spans more than one k and b > 1 (a grid :func:`_plan_grid`
+    never plans: its plans have K == a or b == 1)."""
+    Ka, Mb = K // a, M // b
+    return [[k * M + m for k in range(i * Ka, (i + 1) * Ka)
+             for m in range(j * Mb, (j + 1) * Mb)]
+            for i in range(a) for j in range(b)]
+
+
+def _replicate(model: Model, device: torch.device) -> Model:
+    """A copy of ``model`` with its parameters moved to ``device`` (the
+    reference's replicated ``params``)."""
+    def moved(tree):
+        return {k: moved(v) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+
+    return Model(model.cfg, moved(model.params))
 
 
 def _weak_call(obj, method: str, arg) -> Callable[[], torch.Tensor]:
@@ -200,8 +239,12 @@ def admit(c: Dict[str, torch.Tensor],
 
 @dataclasses.dataclass
 class _Run:
-    """The static tensors of one request shape and its two programs."""
+    """One block's static tensors of one request shape, its model (the
+    engine's, or a replica on the block's device) and its two
+    programs."""
 
+    block: int
+    model: Model
     q: Dict[str, torch.Tensor]
     kv: Dict[str, torch.Tensor]
     start: torch.Tensor          # (G,) steps at the interval's start
@@ -218,16 +261,33 @@ class GraphServingEngine:
     (counterpart of ``repro.serving.engine_jax.JitServingEngine``).
 
     Same constructor surface as the host :class:`ServingEngine` plus
-    ``n_groups`` (independent engine groups on the model's device;
-    streams, slots and pages must divide evenly) and ``min_pages``.
-    ``device`` (``None``: the card, raising without one) must be the
-    model's: on the card the programs run as CUDA graphs, on the CPU
-    (``device="cpu"``) eagerly.  ``run()`` fills the result attributes the reference's
-    ``_finalize`` fills, plus the demand and prefetch hit/miss counts,
-    ``idle_steps`` and ``capture_seconds`` (the warm-up and capture
-    seconds of each program captured in the last run: empty where it
-    replayed only).  Each warm-up before a capture runs its program once
-    eagerly; the reconfiguration program's launches the greedy once.
+    ``n_groups`` (independent engine groups; streams, slots and pages
+    must divide evenly) and ``min_pages``.  ``device`` (``None``: the
+    card, raising without one) must be the model's, index included: on
+    the card the programs run as CUDA graphs, on the CPU (``device="cpu"``)
+    eagerly.  The groups are sharded over
+    :func:`repro_torch.distributed.device_list` at construction (the
+    module docstring says how): ``grid`` is the plan ``(K, M, a, b)``,
+    ``devices`` the device of each block and ``block_groups`` its groups;
+    a list of another device type raises.  ``run()`` fills the result
+    attributes the reference's ``_finalize`` fills, plus the demand and
+    prefetch hit/miss counts, ``idle_steps``, ``block_reconfigs`` and
+    ``capture_seconds``.
+
+    Counters and attributes over blocks: ``serve_graph`` counts replays,
+    ``intervals`` times the blocks; ``serve_reconfig`` (and the greedy's
+    launches) the reconfigurations each block ran, summed
+    (``sum(block_reconfigs)``, a block's count the most of its groups');
+    ``intervals``, ``steps`` and ``reconfigs`` (maxima over groups) equal
+    the unsharded engine's; ``idle_steps`` sums each block's wasted step
+    programs (the unsharded value at one block); ``capture_seconds`` holds
+    the warm-up and capture seconds of each program captured in the last
+    run (empty where it replayed only), keyed ``"steps_warmup"`` and so
+    on, prefixed ``"block{i}/"`` where there is more than one block.
+    Each warm-up before a capture runs its program once eagerly; a
+    reconfiguration program's launches the greedy once.  A block whose
+    program fails to capture or replay raises: no block moves to another
+    device, and nothing runs eagerly in its place.
     """
 
     def __init__(self, model: Model, n_streams: int,
@@ -258,14 +318,27 @@ class GraphServingEngine:
         self._cbp_on = self.cfg.reconfig_every_steps <= _CHUNK_CAP
         self._chunk = (self.cfg.reconfig_every_steps if self._cbp_on
                        else _OFF_CHUNK)
-        self._grid = _plan_grid(n_groups)
+        devices = distributed.device_list(model.device)
+        self.grid = _plan_grid(n_groups, len(devices))
+        self.block_groups = _block_groups(*self.grid)
+        self.devices = devices[:len(self.block_groups)]
+        replicas = {}
+        for dev in self.devices:
+            if not same_device(dev, model.device) and dev not in replicas:
+                replicas[dev] = _replicate(model, dev)
+        self._models = [replicas.get(dev, model) for dev in self.devices]
         self._graphs = model.device.type == "cuda"
-        self._runs: Dict[Tuple[int, int, int], _Run] = {}
+        # Threads that launch the blocks' interval replays: one a card
+        # (on one card the replays run in turn whoever launches them).
+        self._threads = len(set(self.devices)) if self._graphs else 1
+        # (R, P, C, block) -> that block's run of the request shape
+        self._runs: Dict[Tuple[int, int, int, int], _Run] = {}
         # filled by run():
         self.steps = 0
         self.reconfigs = 0
         self.intervals = 0
         self.idle_steps = 0
+        self.block_reconfigs: List[int] = []
         self.capture_seconds: Dict[str, float] = {}
 
     # ------------------------------------------------------------- #
@@ -375,49 +448,60 @@ class GraphServingEngine:
                 q["queue_wait"][g, s] += float(
                     q["steps"][g] - q["enqueue_step"][g, r])
 
-    def _bind(self, host: Dict[str, np.ndarray]) -> _Run:
-        """The static tensors for this request shape, filled with ``host``
-        and an empty cache (allocated, and on the card captured, at the
-        shape's first run)."""
-        G, R1, C1 = host["out_tokens"].shape
-        key = (R1 - 1, host["prompts"].shape[2], C1 - 1)
-        run = self._runs.get(key)
-        dev = self.model.device
-        if run is None:
-            kv = self.model.init_cache(G * self._spg, self.cfg.max_len,
-                                       dtype=_F32)
-            S = G * self._spg
-            for leaf in kv.values():
-                if leaf.dim() < 2 or leaf.shape[1] != S:
-                    raise ValueError(
-                        "cache leaf without a slot axis at position 1: "
-                        f"shape {tuple(leaf.shape)} (family "
-                        f"{self.model.cfg.family})")
-            run = _Run(
-                q={k: torch.as_tensor(v, device=dev).clone()
-                   for k, v in host.items()},
-                kv=kv,
-                start=torch.zeros((G,), dtype=_I32, device=dev),
-                max_steps=torch.zeros((), dtype=_I32, device=dev),
-                min_pages=torch.full((G,), self._min_pages, dtype=_I32,
-                                     device=dev),
-                min_share=torch.tensor(self.cfg.min_slot_share, dtype=_F32,
-                                       device=dev),
-                threshold=torch.tensor(self.cfg.speedup_threshold,
-                                       dtype=_F32, device=dev))
-            self._runs[key] = run
-        else:
-            for k, v in host.items():
-                run.q[k].copy_(torch.as_tensor(v))
-            for leaf in run.kv.values():
-                leaf.zero_()
-        return run
+    def _bind(self, host: Dict[str, np.ndarray]) -> List[_Run]:
+        """Each block's static tensors for this request shape, filled
+        with its groups' rows of ``host`` and an empty cache (allocated,
+        and on the card captured, at the shape's first run)."""
+        _, R1, C1 = host["out_tokens"].shape
+        shape = (R1 - 1, host["prompts"].shape[2], C1 - 1)
+        runs = []
+        for b, (groups, model) in enumerate(zip(self.block_groups,
+                                                self._models)):
+            rows = {k: v if v.ndim == 0 else v[groups]
+                    for k, v in host.items()}
+            run = self._runs.get(shape + (b,))
+            if run is None:
+                run = self._new_run(b, model, rows)
+                self._runs[shape + (b,)] = run
+            else:
+                for k, v in rows.items():
+                    run.q[k].copy_(torch.as_tensor(v))
+                for leaf in run.kv.values():
+                    leaf.zero_()
+            runs.append(run)
+        return runs
+
+    def _new_run(self, block: int, model: Model,
+                 rows: Dict[str, np.ndarray]) -> _Run:
+        G = len(self.block_groups[block])
+        S = G * self._spg
+        dev = model.device
+        kv = model.init_cache(S, self.cfg.max_len, dtype=_F32)
+        for leaf in kv.values():
+            if leaf.dim() < 2 or leaf.shape[1] != S:
+                raise ValueError(
+                    "cache leaf without a slot axis at position 1: "
+                    f"shape {tuple(leaf.shape)} (family "
+                    f"{model.cfg.family})")
+        return _Run(
+            block=block, model=model,
+            q={k: torch.as_tensor(v, device=dev).clone()
+               for k, v in rows.items()},
+            kv=kv,
+            start=torch.zeros((G,), dtype=_I32, device=dev),
+            max_steps=torch.zeros((), dtype=_I32, device=dev),
+            min_pages=torch.full((G,), self._min_pages, dtype=_I32,
+                                 device=dev),
+            min_share=torch.tensor(self.cfg.min_slot_share, dtype=_F32,
+                                   device=dev),
+            threshold=torch.tensor(self.cfg.speedup_threshold, dtype=_F32,
+                                   device=dev))
 
     def _captured(self, run: _Run, which: str) -> CapturedProgram:
-        """``run``'s interval or reconfiguration program, captured on the
-        card just before its first replay.  A capture runs the function
-        once eagerly first, which would advance the state: the state is
-        kept before and put back after, in place.  So the
+        """``run``'s interval or reconfiguration program, captured on its
+        block's card just before its first replay.  A capture runs the
+        function once eagerly first, which would advance the state: the
+        state is kept before and put back after, in place.  So the
         reconfiguration program's warm-up sees the first boundary's own
         inputs."""
         program = getattr(run, which)
@@ -429,16 +513,32 @@ class GraphServingEngine:
             saved = {k: v.clone() for k, v in run.q.items()}
             saved_kv = ({k: v.clone() for k, v in run.kv.items()}
                         if which == "steps" else {})
-            program = CapturedProgram(fn, self.model.device, counter)
+            program = CapturedProgram(fn, run.model.device, counter)
             program.capture()
             for k, v in saved.items():
                 run.q[k].copy_(v)
             for k, v in saved_kv.items():
                 run.kv[k].copy_(v)
             setattr(run, which, program)
+            prefix = f"block{run.block}/" if len(self.devices) > 1 else ""
             self.capture_seconds.update(
-                {f"{which}_{k}": v for k, v in program.seconds.items()})
+                {f"{prefix}{which}_{k}": v
+                 for k, v in program.seconds.items()})
         return program
+
+    def _launch(self, run: _Run, which: str) -> torch.Tensor:
+        """One run of ``run``'s interval (``"steps"``) or reconfiguration
+        program: a replay on the card, an eager call on the CPU, counted
+        alike."""
+        if self._graphs:
+            return self._captured(run, which).run()
+        if which == "steps":
+            out = self._interval(run)
+            SERVE_GRAPH_REPLAYS.record()
+        else:
+            out = self._reconfigure(run)
+            SERVE_RECONFIG_REPLAYS.record()
+        return out
 
     # ------------------------------------------------------------- #
     # the device programs (no host read inside)
@@ -459,7 +559,7 @@ class GraphServingEngine:
         upd = q["active"] & live[:, None]                           # (G, spg)
 
         # ---- decode every slot at ITS position ---------------------------
-        logits, _ = self.model.decode_step(
+        logits, _ = run.model.decode_step(
             run.kv, q["tokens"].reshape(G * spg, 1),
             q["pos"].reshape(G * spg), inplace=True)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(_I32).reshape(G, spg)
@@ -617,37 +717,65 @@ class GraphServingEngine:
 
     def run(self, requests: List[Request], max_steps: int = 10_000
             ) -> List[Request]:
-        """Continuous batching over the request list; one replay of the
-        interval program per interval, one of the reconfiguration program
-        per reconfiguration, one host read of two flags between them."""
+        """Continuous batching over the request list; per interval, one
+        replay of each block's interval program, one of a block's
+        reconfiguration program per reconfiguration it runs, and one host
+        read of each block's two flags after every block was launched."""
         if not requests:
             return requests
-        run = self._bind(self._build_state(requests))
-        run.max_steps.fill_(min(max_steps, np.iinfo(np.int32).max))
+        runs = self._bind(self._build_state(requests))
+        for run in runs:
+            run.max_steps.fill_(min(max_steps, np.iinfo(np.int32).max))
         self.capture_seconds = {}
         n_intervals = max(1, math.ceil(max_steps / self._chunk))
         self.intervals = 0
-        for _ in range(n_intervals):
-            if self._graphs:
-                flags = self._captured(run, "steps").run()
-            else:
-                flags = self._interval(run)
-                SERVE_GRAPH_REPLAYS.record()
-            self.intervals += 1
-            any_active, any_full = flags.tolist()
-            if self._cbp_on and any_full:
-                if self._graphs:
-                    self._captured(run, "reconfigure").run()
-                else:
-                    self._reconfigure(run)
-                    SERVE_RECONFIG_REPLAYS.record()
-            if not any_active:
-                break
-        self._finalize(run, requests)
+        with (ThreadPoolExecutor(self._threads) if self._threads > 1
+              else contextlib.nullcontext()) as pool:
+            for _ in range(n_intervals):
+                flags = [f.tolist() for f in self._intervals(runs, pool)]
+                self.intervals += 1
+                if self._cbp_on:
+                    for run, (_, any_full) in zip(runs, flags):
+                        if any_full:
+                            self._launch(run, "reconfigure")
+                if not any(any_active for any_active, _ in flags):
+                    break
+        self._finalize(runs, requests)
         return requests
 
-    def _finalize(self, run: _Run, requests: List[Request]) -> None:
-        q = {k: v.cpu().numpy() for k, v in run.q.items()}
+    def _intervals(self, runs: List[_Run],
+                   pool: Optional[ThreadPoolExecutor]) -> List[torch.Tensor]:
+        """Every block's interval program, all launched before any flag is
+        read.  With ``pool`` (blocks on several cards) each is captured in
+        turn from this thread, then replayed from a thread of its own and
+        counted here: a large graph's launch holds its host thread for
+        most of the graph's run, so replays launched from one thread
+        would run one card after another."""
+        if pool is None:
+            return [self._launch(run, "steps") for run in runs]
+        programs = [self._captured(run, "steps") for run in runs]
+        outs = list(pool.map(lambda program: program.replay(), programs))
+        for program in programs:
+            program.record()
+        return outs
+
+    def _gather(self, runs: List[_Run]) -> Dict[str, np.ndarray]:
+        """The blocks' queue states as one, in group order (0-D counters
+        summed over blocks)."""
+        blocks = [{k: v.cpu().numpy() for k, v in run.q.items()}
+                  for run in runs]
+        q = {}
+        for k, v in blocks[0].items():
+            if v.ndim == 0:
+                q[k] = sum(b[k] for b in blocks)
+                continue
+            q[k] = np.empty((self.n_groups,) + v.shape[1:], dtype=v.dtype)
+            for groups, b in zip(self.block_groups, blocks):
+                q[k][groups] = b[k]
+        return q
+
+    def _finalize(self, runs: List[_Run], requests: List[Request]) -> None:
+        q = self._gather(runs)
         for i, req in enumerate(requests):
             g, r = self._req_loc[i]
             if q["admitted"][g, r]:
@@ -659,6 +787,8 @@ class GraphServingEngine:
 
         self.steps = int(q["steps"].max())
         self.reconfigs = int(q["reconfigs"].max())
+        self.block_reconfigs = [int(q["reconfigs"][groups].max())
+                                for groups in self.block_groups]
         self.idle_steps = int(q["idle_steps"])
         self.slot_share = flat("slot_share").astype(np.float64)
         self.queue_wait = flat("queue_wait").astype(np.float64)

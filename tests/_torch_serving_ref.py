@@ -1,7 +1,8 @@
 """Reference runs of the JAX package's serving engines for the port's
 serving tests (``tests/test_torch_serving.py``), and what the tests and
-``chip_smoke.py`` phase 15 share: the fixtures, the margin recorder and
-the token rule.  Importing this module imports neither JAX nor the JAX
+``chip_smoke.py`` phases 15 and 17 share: the fixtures (the sharded
+engine's parity fixture among them), the margin recorder and the token
+rule.  Importing this module imports neither JAX nor the JAX
 package; only the subprocess does.
 
 The reference runs in one subprocess with x64 OFF, as
@@ -101,6 +102,25 @@ def fixtures(EngineConfig):
         "tie_break": (2, one, requests_tie_break, (1,)),
         "cbp_off": (4, off, requests_main, (1,)),
     }
+
+
+def parity_config(EngineConfig):
+    """The engine configuration of ``tests/test_serving_jax.py``'s
+    ``_PARITY_SCRIPT`` (l.236-273), the reference's sharded-engine gate."""
+    return EngineConfig(batch_slots=16, max_len=48, page_tokens=4,
+                        total_pages=64, reconfig_every_steps=8)
+
+
+def parity_requests(Request, vocab, n_streams=8):
+    """``_PARITY_SCRIPT``'s 40 requests (seed 7) over ``n_streams``
+    streams (the script's 8; 16 for sixteen one-stream groups)."""
+    rng = np.random.default_rng(7)
+    return [Request(stream=int(rng.integers(n_streams)),
+                    prompt=rng.integers(1, vocab,
+                                        size=int(rng.integers(1, 7))
+                                        ).astype(np.int32),
+                    max_new_tokens=int(rng.integers(1, 8)))
+            for _ in range(40)]
 
 
 # ------------------------------------------------------------------ #

@@ -26,7 +26,7 @@ import torch
 
 from _torch_serving_ref import MAX_STEPS, fixtures
 
-from repro_torch import configs
+from repro_torch import configs, distributed
 from repro_torch.core.dispatch import launch_counts, reset_launch_counts
 from repro_torch.models import build
 from repro_torch.serving import (
@@ -59,12 +59,16 @@ def models():
 
 
 def engine(model, name, kind):
+    """The engine of ``kind`` over ``model``; a device engine on the
+    model's one device (its groups unsharded on a machine with more
+    cards, as on the CPU)."""
     n, ecfg, _, _ = FIXTURES[name]
     dev = model.device.type
     if kind == "host":
         return ServingEngine(model, n, ecfg, device=dev)
-    return GraphServingEngine(model, n, ecfg, n_groups=int(kind[5:]),
-                              device=dev)
+    with distributed.use_devices([model.device]):
+        return GraphServingEngine(model, n, ecfg, n_groups=int(kind[5:]),
+                                  device=dev)
 
 
 def outputs(eng, name, vocab):

@@ -16,7 +16,8 @@
   hybrid, encoder-decoder, int8 cache; per-row and scalar positions, the
   ``onehot`` and ``dus`` writes) over 12 steps.
 * The launcher ``python -m repro_torch.launch.serve --device cpu`` serves
-  its requests with either engine.
+  its requests with either engine, and with ``--groups 2`` on two forced
+  devices prints the grid it planned and the device of each block.
 """
 import dataclasses
 import os
@@ -242,10 +243,25 @@ def test_inplace_decode_is_bit_identical(case, positions):
 # the launcher
 # ------------------------------------------------------------------ #
 
-@pytest.mark.parametrize("engine", ["host", "graph"])
-def test_launcher_serves_on_the_cpu(engine):
+#: The launcher under ``use_devices``, the port's counterpart of the
+#: reference's forced host devices: ``--groups`` shards over the list.
+FORCED_LAUNCH = """
+import sys, torch
+from repro_torch.distributed import use_devices
+from repro_torch.launch.serve import main
+with use_devices([torch.device("cpu")] * 2):
+    main(sys.argv[1:])
+"""
+
+
+@pytest.mark.parametrize("engine,groups", [
+    ("host", 1), ("graph", 1), ("graph", 2)],
+    ids=["host", "graph", "graph-groups2-on-2-devices"])
+def test_launcher_serves_on_the_cpu(engine, groups):
+    entry = (["-m", "repro_torch.launch.serve"] if groups == 1 else
+             ["-c", FORCED_LAUNCH, "--streams", "4", "--groups", "2"])
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+        [sys.executable, *entry, "--device", "cpu",
          "--engine", engine, "--requests", "6", "--max-new", "4"],
         env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
              "OMP_NUM_THREADS": "1"}, cwd=ROOT,
@@ -253,3 +269,6 @@ def test_launcher_serves_on_the_cpu(engine):
     assert proc.returncode == 0, proc.stderr
     assert f"engine={engine}" in proc.stdout
     assert "completed 6/6" in proc.stdout
+    if groups == 2:
+        assert "grid K=1 M=2 a=1 b=2: groups [[0], [1]] on cpu, cpu" \
+            in proc.stdout
