@@ -220,6 +220,26 @@ before it and read just after:
              seconds per block and peak memory (below the unsharded peak
              plus half the weights: the blocks share the model's).  Its
              greedy launches count in ``launches_shard``.
+18. mesh   — the training mesh (``repro_torch.distributed``'s mesh state,
+             ``launch/shardings.py``, ``launch/mesh_train.py``) on a (1, 1)
+             ("data", "model") NCCL mesh of this process, one card being
+             one rank: (a) the reference's sharded-training gate
+             (``tests/test_distributed.py``: qwen3-8b, qwen3-moe-30b-a3b
+             and mamba2-1.3b smoke configs in f32 with sequence-sharded
+             activations and full remat, three AdamW steps at lr 1e-3 in
+             2 microbatches), parameters placed by ``param_specs`` and the
+             optimizer state by ``opt_state_specs``, against the same
+             steps without a mesh on the card: losses finite and falling,
+             losses and parameters bit for bit or else within phase
+             16(a)'s bound, the largest differences printed; (b) qwen3-8b
+             at full width cut to 8 layers, two AdamW steps of 4 x 1,024
+             tokens with and without the mesh, one run after the other,
+             held as in (a): warm step times (the cost of DTensor
+             dispatch), peak memory beside ``analytic_memory``'s
+             prediction for one card; (c) ``analytic_memory`` for the full
+             36-layer config with AdamW on 1 card and on a (2, 2) mesh of
+             4.  The process group ends with the phase.  The mesh path
+             launches none of the five kernels (``launches_mesh``).
 
 After every phase a ``memory`` line gives the device memory still
 allocated and what a collector pass then frees (memory that reference
@@ -268,7 +288,8 @@ bound; the greedy's at the bucketed sweep's own boundary inputs, with its
 launches on every path, 0 in phase 14, phase 15's as ``launches_serve``,
 phase 16(d)'s as ``launches_train_binding``, and the shapes of every
 path's inputs it was held to; every kernel's ``launches_train``, its
-launches over phase 16(a)-(c), and ``launches_shard``, over phase 17).
+launches over phase 16(a)-(c), ``launches_shard``, over phase 17, and
+``launches_mesh``, over phase 18(a)-(b)).
 Any failed check exits non-zero before the last line, which is ``{"ok":
 true, "device": {...}}`` on success.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -3363,6 +3384,179 @@ def sharding_phase(card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 18: the training mesh
+# --------------------------------------------------------------------- #
+
+#: (b) qwen3-8b at full width cut to TRAIN_FULL_LAYERS layers: AdamW
+#: steps of TRAIN_FULL_B x TRAIN_FULL_S tokens at TRAIN_FULL_LR, with and
+#: without the (1, 1) mesh.
+MESH_FULL_STEPS = 2
+#: (c) analytic_memory's figures for the full config: its chip counts,
+#: with the (data, model) mesh each would run on.
+MESH_FIT_CHIPS = {1: (1, 1), 4: (2, 2)}
+CARD_BYTES = 80e9
+
+
+def mesh_compare(got: dict, want: dict, what: str) -> dict:
+    """A mesh run against the same steps without one: bit for bit, or
+    else within phase 16(a)'s training bound (losses within atol 1e-5
+    max(1, |loss|) + rtol 1e-4; parameters within 2 lr steps, and within
+    that bound on at least 99.9 % of entries)."""
+    import numpy as np
+    import torch
+
+    gl = torch.tensor(got["losses"], dtype=torch.float64)
+    wl = torch.tensor(want["losses"], dtype=torch.float64)
+    same = bool(torch.equal(gl, wl)) and all(
+        np.array_equal(g, w) for g, w in zip(got["params"], want["params"]))
+    rec = {"bit_for_bit": same,
+           "loss_max_abs": float((gl - wl).abs().max()),
+           "param_max_abs": max(float(np.abs(g - w).max())
+                                for g, w in zip(got["params"],
+                                                want["params"]))}
+    if not same:
+        check(bool(((gl - wl).abs() <= TRAIN_ATOL * max(
+            1.0, float(wl.abs().max())) + TRAIN_RTOL * wl.abs()).all()),
+              f"mesh {what}: losses {gl.tolist()} vs {wl.tolist()}")
+        outside = total = 0
+        for i, (g, w) in enumerate(zip(got["params"], want["params"])):
+            n, _ = train_outside(torch.from_numpy(g), torch.from_numpy(w),
+                                 0.0, f"mesh {what} leaf {i}")
+            outside, total = outside + n, total + w.size
+        check(outside <= (1 - TRAIN_SHARE) * total,
+              f"mesh {what}: {outside} of {total} entries past the bound")
+        rec["entries_outside"] = outside
+    return rec
+
+
+def mesh_gate(card: str, mesh) -> dict:
+    """(a) The reference's gate configs on the (1, 1) mesh against the
+    same three AdamW steps without one, on the card."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh_train as mt
+
+    out = {}
+    for arch in mt.GATE_ARCHS:
+        cfg = mt.gate_config(configs.get_smoke(arch), (1, 1))
+        batches = mt.gate_batches(cfg, mt.GATE_STEPS)
+        want = mt.train_on_mesh(cfg, None, batches, device=DEVICE)
+        got = mt.train_on_mesh(cfg, mesh, batches, device=DEVICE)
+        losses = got["losses"]
+        check(all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0],
+              f"mesh {arch}: losses {losses} are not finite and falling")
+        out[arch] = mesh_compare(got, want, arch)
+        emit(card, phase="mesh", case="gate", config=arch,
+             losses_mesh=losses, losses_plain=want["losses"], **out[arch])
+    return out
+
+
+def mesh_full(card: str, mesh) -> dict:
+    """(b) qwen3-8b at full width cut to TRAIN_FULL_LAYERS layers, with
+    and without the (1, 1) mesh, one run after the other (the first freed
+    before the second): warm step times (the cost of DTensor dispatch),
+    peak memory beside analytic_memory's prediction for one card."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import mesh_train as mt
+    from repro_torch.launch.analytic import analytic_memory
+    from repro_torch.models.model import ShapeSpec
+
+    cfg = dataclasses.replace(configs.get("qwen3-8b"),
+                              n_layers=TRAIN_FULL_LAYERS)
+    src = SyntheticTokens(TRAIN_FULL_B, TRAIN_FULL_S, cfg.vocab_size, seed=1)
+    batches = [next(src) for _ in range(MESH_FULL_STEPS)]
+    predicted = analytic_memory(
+        cfg, ShapeSpec("train", TRAIN_FULL_S, TRAIN_FULL_B, "train"), 1,
+        "adamw")
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[name] = mt.train_on_mesh(cfg, m, batches, device=DEVICE,
+                                      lr=TRAIN_FULL_LR, microbatches=1)
+    rec = mesh_compare(runs["mesh"], runs["plain"], "qwen3-8b full")
+    tokens = TRAIN_FULL_B * TRAIN_FULL_S
+    for name, r in runs.items():
+        warm = r["step_s"][-1]
+        rec[name] = {"losses": r["losses"], "step_s": r["step_s"],
+                     "warm_step_s": warm, "tokens_per_s": tokens / warm,
+                     "peak_bytes": r["peak_bytes"]}
+    rec["dtensor_dispatch_s"] = (rec["mesh"]["warm_step_s"]
+                                 - rec["plain"]["warm_step_s"])
+    rec["analytic_bytes"] = predicted
+    rec["peak_over_analytic"] = (rec["mesh"]["peak_bytes"]
+                                 / predicted["total_bytes"])
+    del runs
+    emit(card, phase="mesh", case="qwen3-8b_full",
+         config=f"qwen3-8b, {TRAIN_FULL_LAYERS} of 36 layers",
+         tokens_per_step=tokens, **rec)
+    return rec
+
+
+def mesh_fit(card: str) -> dict:
+    """(c) What fits: analytic_memory for the full 36-layer qwen3-8b with
+    AdamW on 1 and on 4 cards (a (2, 2) mesh)."""
+    from repro_torch import configs
+    from repro_torch.launch.analytic import analytic_memory
+    from repro_torch.models.model import ShapeSpec
+
+    out = {}
+    for chips, (dp, mdl) in MESH_FIT_CHIPS.items():
+        cfg = configs.get("qwen3-8b").with_mesh(mdl, dp)
+        mem = analytic_memory(
+            cfg, ShapeSpec("train", TRAIN_FULL_S, TRAIN_FULL_B, "train"),
+            chips, "adamw")
+        out[chips] = {"mesh": [dp, mdl], **mem,
+                      "fits_80gb": mem["total_bytes"] < CARD_BYTES}
+    emit(card, phase="mesh", case="fit", config="qwen3-8b, 36 layers",
+         chips=out)
+    return out
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 18 on a (1, 1) ("data", "model") NCCL mesh of this process
+    (one card is one rank), with the launch counts reset just before
+    (a)-(b) and read just after (the mesh path launches no hand-written
+    kernel); the process group ends with the phase."""
+    import os
+    import tempfile
+
+    from repro_torch import distributed as D
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.launch import mesh_train as mt
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        D.start_ranks(os.path.join(tmp, "store"), 0, 1, DEVICE)
+        try:
+            mesh = D.make_mesh((1, 1), mt.AXES, DEVICE)
+            reset_launch_counts()
+            gate = mesh_gate(card, mesh)
+            full = mesh_full(card, mesh)
+            counts = launch_counts()
+        finally:
+            D.end_ranks()
+    check(not any(counts.values()),
+          f"mesh: a hand-written kernel launched: {counts}")
+    fit = mesh_fit(card)
+    emit(card, phase="mesh", case="summary",
+         seconds=time.perf_counter() - t0, launches=counts,
+         gate_bit_for_bit={k: v["bit_for_bit"] for k, v in gate.items()},
+         full_bit_for_bit=full["bit_for_bit"],
+         warm_step_s_mesh=full["mesh"]["warm_step_s"],
+         warm_step_s_plain=full["plain"]["warm_step_s"],
+         fits_1_card=fit[1]["fits_80gb"], fits_4_cards=fit[4]["fits_80gb"])
+    return counts
+
+
 def sync() -> None:
     import torch
 
@@ -3919,6 +4113,7 @@ def main() -> int:
         launches_serve = probed("serve", serve_phase(card))
         launches_train, binding = probed("train", train_phase(card))
         launches_shard = probed("shard", sharding_phase(card))
+        launches_mesh = probed("mesh", mesh_phase(card))
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -3956,6 +4151,7 @@ def main() -> int:
         for row in kernels:
             row["launches_train"] = launches_train.get(row["name"], 0)
             row["launches_shard"] = launches_shard.get(row["name"], 0)
+            row["launches_mesh"] = launches_mesh.get(row["name"], 0)
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

@@ -4,9 +4,13 @@ pipeline (counterpart of :mod:`repro.launch.train`).
 On the card by default; ``device="cpu"`` (``--device cpu``) must be asked
 for, with a smoke config: never build a full-size config on a CPU.
 ``--full`` builds the full config on the card, with random weights from
-seed 0; a full config fits one 80 GB card only where its parameters and
-optimizer state do (AdamW keeps 16 bytes a bf16 parameter: qwen3-8b's 36
-layers need 131 GB, so it does not fit whole).
+seed 0, and first prints ``analytic_memory``'s figures for one card and
+the optimizer (:mod:`repro_torch.launch.analytic`); a full config fits
+one 80 GB card only where its parameters and optimizer state do (AdamW
+keeps 16 bytes a bf16 parameter: qwen3-8b's 36 layers need 131 GB, so it
+does not fit whole).  This loop runs on one device, as the reference's
+does; a config that needs several cards trains on a mesh of processes,
+one a card (:mod:`repro_torch.launch.mesh_train`, ``torchrun``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
       --steps 50 [--optimizer adafactor] [--ckpt DIR] [--device cpu]
@@ -31,8 +35,10 @@ from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import PrefetchPipeline, SyntheticTokens
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.analytic import analytic_memory
 from repro_torch.models import build
 from repro_torch.models.layers import tree_leaves
+from repro_torch.models.model import ShapeSpec
 from repro_torch.runtime.fault import StragglerWatchdog
 from repro_torch.train.step import TrainStepConfig, build_train_step
 
@@ -126,11 +132,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="full (non-smoke) config, on the card; it must fit "
                          "one card with its optimizer state (AdamW: 16 "
                          "bytes a bf16 parameter, so qwen3-8b's 36 layers "
-                         "need 131 GB and do not fit one 80 GB card)")
+                         "need 131 GB and do not fit one 80 GB card); "
+                         "prints analytic_memory's figures first")
     ap.add_argument("--device", default=None,
                     help="cuda (default: the card; raises without one) or "
                          "cpu")
     args = ap.parse_args(argv)
+    if args.full:
+        spec = ShapeSpec("train", args.seq, args.batch, "train")
+        mem = analytic_memory(configs.get(args.arch), spec, 1,
+                              args.optimizer)
+        print(f"analytic memory, one card, {args.optimizer}: "
+              + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in mem.items()),
+              flush=True)
     out = train_loop(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
         lr=args.lr, optimizer=args.optimizer,

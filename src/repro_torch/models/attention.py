@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import F32, einsum
+from repro_torch.distributed import is_dtensor, on_shards
+from repro_torch.models.layers import F32, einsum, reshape
 
 NEG_INF = -1e30
 
@@ -21,8 +22,8 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return k
     b, s, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
-        b, s, h * n_rep, d)
+    return reshape(k[:, :, :, None, :].expand(b, s, h, n_rep, d),
+                   b, s, h * n_rep, d)
 
 
 def _causal_mask(scores: torch.Tensor, start: int) -> torch.Tensor:
@@ -47,6 +48,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     random numbers, so the checkpoint neither saves nor restores the RNG
     state.
     """
+    if is_dtensor(q):
+        return _on_rows_and_heads(q, k, v, chunk, causal, remat_chunk)
     sq, dh = q.shape[1], q.shape[-1]
     scale = dh ** -0.5
     chunk = min(chunk, sq)
@@ -79,6 +82,23 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bounds = starts[1:] + [sq]
     return torch.cat([one_chunk(q[:, a:b], a)
                       for a, b in zip(starts, bounds)], dim=1)
+
+
+def _on_rows_and_heads(q, k, v, chunk: int, causal: bool,
+                       remat_chunk: bool) -> torch.Tensor:
+    """:func:`causal_attention` of DTensors: attention is local to a batch
+    row and a head, so each rank attends over its own rows and heads
+    (q's layout, its sequence and head width whole; K and V taken in it)
+    without a DTensor op inside."""
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_shard(1) or p.is_shard(3) else p
+          for p in q.placements]
+    q, k, v = (t.redistribute(t.device_mesh, pl) for t in (q, k, v))
+    return on_shards(
+        lambda q, k, v: causal_attention(q, k, v, chunk, causal,
+                                         remat_chunk),
+        q.device_mesh, (pl,), (pl, pl, pl))(q, k, v)
 
 
 def _length_mask(scores: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import (
@@ -82,26 +83,26 @@ def init_params(gen, cfg: ModelConfig, device) -> Dict:
 def _mha(p, cfg: ModelConfig, xq, xkv, causal: bool):
     b, sq, _ = xq.shape
     dh = cfg.head_dim
-    q = L.einsum("bsd,dk->bsk", xq, p["wq"]).reshape(
-        b, sq, cfg.padded_heads, dh)
+    q = L.reshape(L.einsum("bsd,dk->bsk", xq, p["wq"]),
+                  b, sq, cfg.padded_heads, dh)
     k, v = _project_kv(p, cfg, xkv)
     k = repeat_kv(k, cfg.n_rep)
     v = repeat_kv(v, cfg.n_rep)
     o = causal_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal)
-    return L.einsum("bsk,kd->bsd", o.reshape(b, sq, -1), p["wo"])
+    return L.einsum("bsk,kd->bsd", L.reshape(o, b, sq, -1), p["wo"])
 
 
 def _project_kv(p, cfg: ModelConfig, xkv):
     b, s, _ = xkv.shape
     shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
-    return (L.einsum("bsd,dk->bsk", xkv, p["wk"]).reshape(shape),
-            L.einsum("bsd,dk->bsk", xkv, p["wv"]).reshape(shape))
+    return (L.reshape(L.einsum("bsd,dk->bsk", xkv, p["wk"]), *shape),
+            L.reshape(L.einsum("bsd,dk->bsk", xkv, p["wv"]), *shape))
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, d) stub embeddings -> encoder hidden."""
     pos = L.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device)
-    x = frames + pos[None].to(frames.dtype)
+    x = constrain(frames + pos[None].to(frames.dtype), "dp", None, None)
     for lp in L.layers(params["encoder"], cfg.n_enc_layers):
         x = T.remat_call(cfg, _encoder_layer, lp, cfg, x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -111,7 +112,8 @@ def _encoder_layer(lp, cfg: ModelConfig, x):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + _mha(lp["attn"], cfg, h, h, causal=False)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    x = x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    return constrain(x, "dp", None, None)
 
 
 def _decoder_layer(lp, cfg: ModelConfig, x, enc_hidden):
@@ -120,7 +122,8 @@ def _decoder_layer(lp, cfg: ModelConfig, x, enc_hidden):
     h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
     x = x + _mha(lp["xattn"], cfg, h, enc_hidden, causal=False)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    x = x + L.gelu_mlp(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    return constrain(x, "dp", None, None)
 
 
 def decode_train(params, cfg: ModelConfig, tokens,

@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -49,7 +50,7 @@ def _hybrid_layer(lp, cfg: ModelConfig, x, positions, shared, attend: bool):
     where it applies, then the layer's Mamba block."""
     if attend:
         x = _shared_block(shared, cfg, x, positions)
-    return S.mamba_block(lp, cfg, x)
+    return constrain(S.mamba_block(lp, cfg, x), "dp", T._seq_axis(cfg), None)
 
 
 def forward(params, cfg: ModelConfig, x, positions) -> torch.Tensor:

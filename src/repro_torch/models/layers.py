@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import foldable, pin, reduce_partial
+
 F32 = torch.float32
 
 
@@ -71,9 +73,21 @@ def layers(stack: Dict, n: int) -> List[Dict]:
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` over operands promoted to their common dtype first,
     as ``jnp.einsum`` does (bf16 x f32 computes in f32); torch refuses
-    mixed operands."""
+    mixed operands.  DTensor operands are made foldable first
+    (:func:`repro_torch.distributed.foldable`), and the product's gradient
+    comes back in its own layout (:func:`repro_torch.distributed.pin`),
+    which its backward folds too."""
     dtype = functools.reduce(torch.promote_types, (o.dtype for o in ops))
-    return torch.einsum(eq, *(o.to(dtype) for o in ops))
+    return pin(torch.einsum(eq, *foldable(eq, *(o.to(dtype) for o in ops))))
+
+
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)`` whose gradient comes back in the result's own
+    layout (:func:`repro_torch.distributed.pin`): a DTensor's backward
+    view then undoes the forward one on every PyTorch release (2.11's
+    cannot fold a gradient sharded elsewhere).  A plain tensor's reshape
+    as ever."""
+    return pin(x.reshape(*shape))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -191,8 +205,10 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         logits = torch.where(mask, logits, -1e30)
     logits = logits.to(F32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None].long())[..., 0]
+    # vocab-parallel logits (a DTensor sharded over the vocabulary) leave
+    # a masked partial sum here, reduced before the view drops its axis
+    gold = reduce_partial(torch.gather(
+        logits, -1, torch.clamp(labels, min=0)[..., None].long()))[..., 0]
     nll = logz - gold
     valid = (labels >= 0).to(F32)
     return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)

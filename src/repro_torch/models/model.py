@@ -149,7 +149,7 @@ class Model(nn.Module):
             positions = torch.arange(x.shape[1], device=x.device)
             if cfg.family == "hybrid":
                 hidden = hybrid.forward(params, cfg, x, positions)
-            elif cfg.family == "ssm":
+            elif cfg.family == "ssm":   # ssm.forward pins x, as here
                 hidden = ssm.forward(params, cfg, x)
             else:
                 hidden = transformer.forward(params, cfg, x, positions)

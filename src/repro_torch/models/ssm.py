@@ -15,6 +15,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import (
+    constrain,
+    is_dtensor,
+    on_shards,
+    splittable,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -59,7 +65,11 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     k = w.shape[-1]
     s = x.shape[1]
-    xp = F.pad(x.to(F32), (0, 0, k - 1, 0))
+    xf = x.to(F32)
+    # zeros before the sequence by a concatenation, not ``F.pad``: DTensor
+    # has no working ``constant_pad_nd`` backward on every release
+    xp = torch.cat([xf.new_zeros((xf.shape[0], k - 1, xf.shape[2])), xf],
+                   dim=1)
     wf = w.to(x.dtype).to(F32)
     out = xp[:, 0:s] * wf[:, 0]
     for j in range(1, k):
@@ -72,8 +82,11 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     """Chunked SSD scan (plain PyTorch, the reference's jnp oracle).
 
     x: (B, S, H, P); dt: (B, S, H); A: (H,) negative; Bm/Cm: (B, S, N).
-    Returns (y (B,S,H,P), final_state (B,H,P,N)).
+    Returns (y (B,S,H,P), final_state (B,H,P,N)).  DTensor inputs run
+    on each rank's own batch rows and heads (:func:`_ssd_on_shards`).
     """
+    if is_dtensor(x):
+        return _ssd_on_shards(x, dt, A, Bm, Cm, chunk, initial_state)
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     cl = min(chunk, s)
@@ -112,6 +125,49 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     return y.to(x.dtype), state
 
 
+def _ssd_on_shards(x, dt, A, Bm, Cm, chunk: int, initial_state):
+    """:func:`ssd_chunked` of DTensors.  The scan is local to a batch row
+    and a head (B and C are shared by a row's heads), so each rank scans
+    its own rows and heads: x's layout with its sequence and head width
+    whole, dt, A and the state in it, B and C split by rows alone.  A rank
+    sees only its heads' share of B's, C's and A's gradients (partial
+    over the head axes) and only its rows' share of A's (partial over
+    the row axes)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = [p.is_shard(0) for p in x.placements]
+    heads = [p.is_shard(2) for p in x.placements]
+
+    def lay(row_dim, head_dim, partial_rows=False, partial_heads=False):
+        out = []
+        for r, hd in zip(rows, heads):
+            if r:
+                out.append(Partial() if partial_rows else Shard(row_dim)
+                           if row_dim is not None else Replicate())
+            elif hd:
+                out.append(Partial() if partial_heads else Shard(head_dim)
+                           if head_dim is not None else Replicate())
+            else:
+                out.append(Replicate())
+        return out
+
+    px, pdt, pa = lay(0, 2), lay(0, 2), lay(None, 0)
+    pbc, pst = lay(0, None), lay(0, 1)
+    args = [t.redistribute(mesh, pl) for t, pl in
+            ((x, px), (dt, pdt), (A, pa), (Bm, pbc), (Cm, pbc))]
+    state_pl = None
+    if initial_state is not None:
+        initial_state = initial_state.redistribute(mesh, pst)
+        state_pl = pst
+    grads = (px, pdt, lay(None, 0, partial_rows=True),
+             lay(0, None, partial_heads=True),
+             lay(0, None, partial_heads=True), None, state_pl)
+    return on_shards(ssd_chunked, mesh, (px, pst),
+                     (px, pdt, pa, pbc, pbc, None, state_pl), grads)(
+        *args, chunk, initial_state)
+
+
 def mamba_block(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """One Mamba2 block (train/prefill).  x: (B, S, d)."""
     b, s, _ = x.shape
@@ -124,11 +180,12 @@ def mamba_block(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = F.softplus(dt_raw.to(F32) + p["dt_bias"].to(F32))
     xi = F.silu(causal_conv(xi, p["conv"]))
     hh, pp = cfg.ssm_heads, cfg.ssm_head_dim
+    xi = splittable(constrain(xi, "dp", None, "model"), 2, hh)
     A = -torch.exp(p["A_log"])
-    y, _ = ssd_chunked(xi.reshape(b, s, hh, pp), dt, A, Bm, Cm,
-                       cfg.ssm_chunk)
-    y = y + xi.reshape(b, s, hh, pp) * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(b, s, cfg.d_inner)
+    xh = L.reshape(xi, b, s, hh, pp)
+    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + xh * p["D"][None, None, :, None].to(y.dtype)
+    y = L.reshape(y, b, s, cfg.d_inner)
     y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return x + L.einsum("bse,ed->bsd", y, p["out"])
 
@@ -176,7 +233,9 @@ def mamba_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
 
 
 def forward(params, cfg: ModelConfig, x) -> torch.Tensor:
-    """The Mamba stack on embedded inputs; returns the final hidden."""
+    """The Mamba stack on embedded inputs; returns the final hidden (the
+    reference's SSM loss and logits paths each pin the embedded inputs)."""
+    x = constrain(x, "dp", T._seq_axis(cfg), None)
     for lp in L.layers(params["layers"], cfg.n_layers):
         x = T.remat_call(cfg, mamba_block, lp, cfg, x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -3,8 +3,9 @@
 
 Layer parameters stay stacked with a leading ``L`` axis, as in the
 reference; a Python loop over layers takes the place of its ``lax.scan``.
-The reference's ``constrain`` calls are the identity without a mesh and
-are dropped here (multi-GPU placement is ROADMAP Queue A, item 7).
+Activations are pinned with ``constrain`` where the reference pins them:
+the identity without a mesh, a redistribution of a DTensor under one
+(:mod:`repro_torch.distributed`).
 
 MoE uses the reference's gather dispatch: per group, a stable sort of the
 token-expert assignments gives each its position in its expert; positions
@@ -25,6 +26,16 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed import (
+    constrain,
+    get_dp_axes,
+    get_mesh,
+    is_dtensor,
+    mesh_axes,
+    on_shards,
+    placements,
+    spec,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (
     causal_attention,
@@ -113,12 +124,12 @@ def init_params(gen, cfg: ModelConfig, device) -> Dict:
 def _project_qkv(p, cfg: ModelConfig, h):
     b, s, _ = h.shape
     dh = cfg.head_dim
-    q = L.einsum("bsd,dk->bsk", h, p["wq"]).reshape(
-        b, s, cfg.padded_heads, dh)
-    k = L.einsum("bsd,dk->bsk", h, p["wk"]).reshape(
-        b, s, cfg.n_kv_heads, dh)
-    v = L.einsum("bsd,dk->bsk", h, p["wv"]).reshape(
-        b, s, cfg.n_kv_heads, dh)
+    q = L.reshape(L.einsum("bsd,dk->bsk", h, p["wq"]),
+                  b, s, cfg.padded_heads, dh)
+    k = L.reshape(L.einsum("bsd,dk->bsk", h, p["wk"]),
+                  b, s, cfg.n_kv_heads, dh)
+    v = L.reshape(L.einsum("bsd,dk->bsk", h, p["wv"]),
+                  b, s, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -133,10 +144,13 @@ def attention_block(p, cfg: ModelConfig, x, positions,
     if cfg.rope_theta > 0:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+    hq = "model" if cfg.heads_shardable else None
+    q = constrain(q, "dp", None, hq, None)
     k = repeat_kv(k, cfg.n_rep)
     v = repeat_kv(v, cfg.n_rep)
     o = causal_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal)
-    return L.einsum("bsk,kd->bsd", o.reshape(b, s, -1), p["wo"])
+    o = constrain(o, "dp", None, hq, None)
+    return L.einsum("bsk,kd->bsd", L.reshape(o, b, s, -1), p["wo"])
 
 
 def _write_cache(cfg: ModelConfig, cache, new, write_at,
@@ -173,6 +187,20 @@ def _write_cache(cfg: ModelConfig, cache, new, write_at,
     return cache.index_copy(1, at, new)
 
 
+def _decode_batch_axis(b: int):
+    """"dp" where the DP axes of the ambient mesh divide the batch ``b``,
+    else None (and None without a mesh)."""
+    mesh = get_mesh()
+    if mesh is None:
+        return None
+    names, sizes = mesh_axes(mesh)
+    dp_n = 1
+    for a in get_dp_axes():
+        if a in names:
+            dp_n *= sizes[a]
+    return "dp" if b % dp_n == 0 and b >= dp_n else None
+
+
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, cur_len,
                      inplace: bool = False):
     """One-token attention against the cache; returns (out, new_k, new_v).
@@ -194,6 +222,14 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, cur_len,
                            inplace)
     cache_v = _write_cache(cfg, cache_v, _kv_store(cfg, v, cache_v), write_at,
                            inplace)
+    # Pin the ring-buffer layout (batch over DP when divisible, sequence
+    # over model), and keep the one-token query replicated over "model"
+    # (split-KV decode).
+    if not cfg.pure_dp:
+        bax = _decode_batch_axis(cache_k.shape[0])
+        cache_k = constrain(cache_k, bax, "model", None, None)
+        cache_v = constrain(cache_v, bax, "model", None, None)
+        q = constrain(q, bax, None, None, None)
     ckd = _kv_load(cfg, cache_k)
     cvd = _kv_load(cfg, cache_v)
     if cfg.decode_gqa == "grouped" and cfg.n_rep > 1:
@@ -201,6 +237,8 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, cur_len,
     else:
         o = decode_attention(q, repeat_kv(ckd, cfg.n_rep),
                              repeat_kv(cvd, cfg.n_rep), write_at + 1)
+    if not cfg.pure_dp:
+        o = constrain(o, bax, None, None, None)
     out = L.einsum("bsk,kd->bsd", o.reshape(b, 1, -1), p["wo"])
     return out, cache_k, cache_v
 
@@ -250,8 +288,27 @@ def moe_route(p, cfg: ModelConfig, xg: torch.Tensor) -> MoeRoute:
     gates, topi = probs[..., :k], order[..., :k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    n = tg * k
-    flat_e = topi.reshape(ng, n)
+    flat_e = topi.reshape(ng, tg * k)
+    cap = moe_capacity(cfg, tg)
+    if is_dtensor(flat_e):
+        # searchsorted has no DTensor rule; the slots of a group depend on
+        # that group's assignments alone, and the groups are split over
+        # the DP axes only, so each rank computes its own groups'.
+        pl = flat_e.placements
+        slots = on_shards(_kept_slots, flat_e.device_mesh, (pl,),
+                          (pl, None, None))(flat_e, e, cap)
+    else:
+        slots = _kept_slots(flat_e, e, cap)
+    return MoeRoute(gates, topi, slots)
+
+
+def _kept_slots(flat_e: torch.Tensor, e: int, cap: int) -> torch.Tensor:
+    """The (G, E, C) kept-slot table of :class:`MoeRoute` from each
+    group's flat assignments ``flat_e`` (G, T*k): a stable sort gives each
+    assignment its position in its expert, and the overflow rule of
+    :func:`moe_route` keeps the slots."""
+    ng, n = flat_e.shape
+    dev = flat_e.device
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, -1, order)
     ids = torch.arange(e, device=dev).expand(ng, e).contiguous()
@@ -261,7 +318,6 @@ def moe_route(p, cfg: ModelConfig, xg: torch.Tensor) -> MoeRoute:
                   - torch.gather(run_start, -1, sorted_e))
     pos = torch.empty_like(pos_sorted).scatter_(-1, order, pos_sorted)
 
-    cap = moe_capacity(cfg, tg)
     overflow = (run_end - run_start) > cap                       # (G, E)
     limit = torch.where(torch.gather(overflow, -1, flat_e), cap - 1, cap)
     keep = pos < limit
@@ -271,7 +327,58 @@ def moe_route(p, cfg: ModelConfig, xg: torch.Tensor) -> MoeRoute:
     slots = torch.full((ng, e * cap + 1), n, dtype=torch.long, device=dev)
     slots.scatter_(-1, target,
                    torch.arange(n, device=dev).expand(ng, n).contiguous())
-    return MoeRoute(gates, topi, slots[:, :e * cap].reshape(ng, e, cap))
+    return slots[:, :e * cap].reshape(ng, e, cap)
+
+
+def _dispatch(xg: torch.Tensor, slots: torch.Tensor, k: int) -> torch.Tensor:
+    """Each kept slot's token, (G, E, C, d) from ``xg`` (G, T, d); an empty
+    slot holds zeros."""
+    ng, e, cap = slots.shape
+    sentinel = xg.shape[1] * k
+    tok = torch.clamp(slots, max=sentinel - 1) // k      # token per slot
+    groups = torch.arange(ng, device=xg.device)[:, None, None]
+    return torch.where((slots < sentinel)[..., None], xg[groups, tok], 0.0)
+
+
+def _combine(y: torch.Tensor, gates: torch.Tensor, slots: torch.Tensor,
+             tg: int, k: int) -> torch.Tensor:
+    """Scatter-add the gated expert outputs ``y`` (G, E, C, d) back to
+    their tokens: (G, tg, d)."""
+    ng, e, cap, d = y.shape
+    sentinel = tg * k
+    idx = slots.reshape(ng, e * cap)
+    valid = idx < sentinel
+    clamped = torch.clamp(idx, max=sentinel - 1)
+    w = torch.where(valid, torch.gather(gates.reshape(ng, sentinel), -1,
+                                        clamped), 0.0)
+    contrib = y.reshape(ng, e * cap, d) * w[..., None].to(y.dtype)
+    target = torch.where(valid, clamped // k, tg)
+    out = torch.zeros((ng, tg + 1, d), dtype=contrib.dtype, device=y.device)
+    out.scatter_add_(1, target[..., None].expand(ng, e * cap, d), contrib)
+    return out[:, :tg]
+
+
+def _moe_local_fns(xg, espec):
+    """:func:`_dispatch` and :func:`_combine`, each over its own groups and
+    experts on every rank under a mesh.  Groups are split over the DP axes
+    and experts over ``espec``'s; a rank gathers and scatters only the
+    slots of its experts, so the combine is a partial sum over the expert
+    axes (reduced by the next ``constrain``) and so are the gradients of
+    the tokens and gates."""
+    if not is_dtensor(xg):
+        return _dispatch, _combine
+    from torch.distributed.tensor import Partial
+
+    mesh = xg.device_mesh
+    grp = list(xg.placements)                            # (G, ...) tensors
+    exp = placements(spec("dp", espec, None, None, mesh=get_mesh()), mesh)
+    part = [Partial() if e.is_shard(1) else g for e, g in zip(exp, grp)]
+    dispatch = on_shards(_dispatch, mesh, (exp,), (grp, exp, None),
+                         (part, exp, None))
+    combine = on_shards(_combine, mesh, (part,),
+                        (exp, grp, exp, None, None),
+                        (exp, part, exp, None, None))
+    return dispatch, combine
 
 
 def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -282,30 +389,35 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if t % ng:
         raise ValueError(f"{t} tokens do not split into {ng} MoE groups")
     tg = t // ng
-    xg = x.reshape(ng, tg, d)
+    if is_dtensor(x):
+        # tokens data-sharded only before the grouping reshape: DTensor
+        # cannot fold a sequence split over "model" into the groups
+        x = constrain(x, "dp", None, None)
+    xg = constrain(L.reshape(x, ng, tg, d), "dp", None, None)
     route = moe_route(p, cfg, xg)
-    e, cap = route.slots.shape[1:]
-    sentinel = tg * k
-    idx = route.slots.reshape(ng, e * cap)
-    valid = idx < sentinel
-    tok = torch.clamp(idx, max=sentinel - 1) // k        # token per slot
+    espec = "model" if cfg.moe_ep else None
+    dispatch, combine = _moe_local_fns(xg, espec)
+    slots = constrain(route.slots, "dp", espec, None)
+    # (a redistribution's backward brings the gradient back to the layout
+    # it came from: the pins of xg and the gates here sum the expert
+    # axes' partial gradients of the dispatch and the combine)
+    expert_in = constrain(dispatch(constrain(xg, "dp", None, None), slots, k),
+                          "dp", espec, None, None)
 
-    groups = torch.arange(ng, device=x.device)[:, None]
-    expert_in = xg[groups, tok].reshape(ng, e, cap, d)
-    expert_in = torch.where(valid.reshape(ng, e, cap, 1), expert_in, 0.0)
-    gg = F.silu(L.einsum("gecd,edf->gecf", expert_in, p["wg"]))
-    uu = L.einsum("gecd,edf->gecf", expert_in, p["wu"])
-    y = L.einsum("gecf,efd->gecd", gg * uu, p["wd"])   # (G, E, C, d)
+    wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    if cfg.moe_gather_weights and not cfg.moe_ep:
+        # FSDP experts: gather the weights' d dim before the products
+        wg = constrain(wg, espec, None, "model")
+        wu = constrain(wu, espec, None, "model")
+        wd = constrain(wd, espec, "model", None)
+    gg = F.silu(L.einsum("gecd,edf->gecf", expert_in, wg))
+    uu = L.einsum("gecd,edf->gecf", expert_in, wu)
+    y = L.einsum("gecf,efd->gecd", gg * uu, wd)   # (G, E, C, d)
+    y = constrain(y, "dp", espec, None, None)
 
-    # Combine: scatter-add weighted expert outputs back to token slots.
-    w = torch.where(valid, torch.gather(
-        route.gates.reshape(ng, sentinel), -1,
-        torch.clamp(idx, max=sentinel - 1)), 0.0)
-    contrib = y.reshape(ng, e * cap, d) * w[..., None].to(y.dtype)
-    target = torch.where(valid, tok, tg)
-    out = torch.zeros((ng, tg + 1, d), dtype=contrib.dtype, device=x.device)
-    out.scatter_add_(1, target[..., None].expand(ng, e * cap, d), contrib)
-    return out[:, :tg].reshape(b, s, d)
+    gates = constrain(route.gates, "dp", None, None)
+    out = constrain(combine(y, gates, slots, tg, k), "dp", None, None)
+    return L.reshape(out, b, s, d)
 
 
 # ------------------------------------------------------------------ #
@@ -319,11 +431,18 @@ def _ffn(p, cfg: ModelConfig, h):
     return L.swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
 
 
+def _seq_axis(cfg: ModelConfig):
+    """The residual stream's sequence axis: "model" under sequence-sharded
+    activations (Megatron-SP), else None."""
+    return "model" if cfg.seq_shard_activations else None
+
+
 def _layer(p, cfg: ModelConfig, x, positions):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + attention_block(p["attn"], cfg, h, positions)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(p, cfg, h)
+    x = x + _ffn(p, cfg, h)
+    return constrain(x, "dp", _seq_axis(cfg), None)
 
 
 #: The matrix products ``cfg.remat == "dots"`` keeps (``jnp.einsum``'s
@@ -364,19 +483,47 @@ def remat_call(cfg: ModelConfig, fn: Callable, lp: Dict, *args):
 
 def forward(params, cfg: ModelConfig, x_embed, positions) -> torch.Tensor:
     """Run the layer stack on embedded inputs; returns final hidden."""
-    x = x_embed
+    x = constrain(x_embed, "dp", _seq_axis(cfg), None)
     for lp in L.layers(params["layers"], cfg.n_layers):
         x = remat_call(cfg, _layer, lp, cfg, x, positions)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    table = params["embed"]
+    if is_dtensor(table):
+        return _embed_on_shards(table, tokens)
+    return table[tokens.long()]
+
+
+def _embed_on_shards(table: torch.Tensor, tokens) -> torch.Tensor:
+    """The lookup of a DTensor table (V, d): each rank gathers its own
+    tokens' rows of its own columns (the reference shards d, so the
+    gather stays local); a mesh axis that splits the vocabulary, or both
+    the tokens and the columns, is gathered first.  The table's gradient
+    is a partial sum over the axes that split the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):      # the same on every rank
+        tokens = DTensor.from_local(torch.as_tensor(tokens), mesh,
+                                    [Replicate()] * mesh.ndim)
+    tok = list(tokens.placements)
+    tab = [p if p.is_shard(1) and not t.is_shard() else Replicate()
+           for p, t in zip(table.placements, tok)]
+    table = table.redistribute(mesh, tab)
+    nd = tokens.dim()
+    out = [t if t.is_shard() else Shard(nd) if p.is_shard(1) else Replicate()
+           for p, t in zip(tab, tok)]
+    grad = [Partial() if t.is_shard() else p for p, t in zip(tab, tok)]
+    return on_shards(lambda tb, tk: tb[tk.long()], mesh, (out,),
+                     (tab, tok), (grad, tok))(table, tokens)
 
 
 def logits_fn(params, cfg: ModelConfig, hidden) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return L.einsum("bsd,dv->bsv", hidden, head)
+    out = L.einsum("bsd,dv->bsv", hidden, head)
+    return constrain(out, "dp", None, "model")
 
 
 def inputs_embedded(params, cfg: ModelConfig, batch) -> torch.Tensor:

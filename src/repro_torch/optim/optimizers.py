@@ -22,6 +22,16 @@ a new tensor).  Holding two copies of a full AdamW state would not fit
 one card at qwen3-8b's width.  AdamW walks each leaf in flat pieces of at
 most :data:`PIECE` elements, so its f32 temporaries stay small; the
 arithmetic is elementwise, so the pieces give the whole leaf's values.
+
+Under a mesh (:mod:`repro_torch.distributed`) the parameters, gradients
+and state are DTensors, the state laid out by
+:func:`repro_torch.launch.shardings.opt_state_specs` (ZeRO-1 over
+"data").  An update first brings each gradient to its master's placements
+(where ZeRO-1 reduce-scatters the data-parallel partial sums), takes the
+global norm over every shard (the clip's all-reduce), updates the local
+shards of the state (``to_local()``: views of the state's own storage,
+never a redistributed copy), and writes each parameter from its master
+gathered into the parameter's placements (:func:`_assign`).
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import is_dtensor
 from repro_torch.models.layers import tree_leaves, tree_map
 
 F32 = torch.float32
@@ -59,23 +70,75 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=F32, device=like.device)
 
 
+def _assign(dst: torch.Tensor, value: torch.Tensor) -> None:
+    """``value``, cast to ``dst``'s dtype, into ``dst``'s own storage; a
+    DTensor ``value`` is first redistributed to ``dst``'s placements, so
+    each rank writes its own shard of ``dst``."""
+    if is_dtensor(dst):
+        value = value.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(value.to_local())
+    else:
+        dst.copy_(value)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (a view of its storage), a plain
+    tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _value(x: torch.Tensor) -> torch.Tensor:
+    """A scalar DTensor's value as a plain tensor (partial sums reduced),
+    a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _like_state(grads, master):
+    """Each gradient in its master's placements (a no-op without a mesh)."""
+    return tree_map(lambda g, mp: g.redistribute(mp.device_mesh,
+                                                 mp.placements)
+                    if is_dtensor(mp) else g, grads, master)
+
+
+def _zeros(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros in ``p``'s shape, device and (a DTensor's) placements."""
+    return torch.zeros_like(p, dtype=F32, requires_grad=False)
+
+
+def _new(make, params, specs=None, put=None):
+    """``make(p)`` for each parameter, each passed at once through
+    ``put(tensor, spec)`` with its spec from ``specs`` where ``put`` is
+    given (placing a state on a mesh leaf by leaf: one leaf's unplaced
+    copy lives at a time)."""
+    if put is None:
+        return tree_map(make, params)
+    return tree_map(lambda p, sp: put(make(p), sp), params, specs)
+
+
+def _step0(params, specs=None, put=None) -> torch.Tensor:
+    step = torch.zeros((), dtype=torch.int32, device=_device(params))
+    return step if put is None else put(step, specs.step)
+
+
 def _write_params(params, master) -> None:
     """The new parameters, cast to each parameter's dtype, into ``params``."""
     with torch.no_grad():
         for p, mp in zip(tree_leaves(params), tree_leaves(master)):
-            p.copy_(mp)
+            _assign(p, mp)
 
 
 # ----------------------------- AdamW ------------------------------- #
 
 
-def adamw_init(params) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+def adamw_init(params, specs: OptState = None, put=None) -> OptState:
+    """The state of ``params``; with ``put``, each new tensor passes
+    through ``put(tensor, spec)`` with its spec in ``specs`` (an
+    :class:`OptState` of spec trees) as soon as it is made."""
     return OptState(
-        step=torch.zeros((), dtype=torch.int32, device=_device(params)),
-        master=tree_map(_master, params),
-        m=tree_map(zeros, params),
-        v=tree_map(zeros, params),
+        step=_step0(params, specs, put),
+        master=_new(_master, params, specs and specs.master, put),
+        m=_new(_zeros, params, specs and specs.m, put),
+        v=_new(_zeros, params, specs and specs.v, put),
     )
 
 
@@ -92,15 +155,17 @@ def adamw_update(params, grads, state: OptState, *, lr: float,
                  weight_decay: float = 0.1,
                  grad_clip: float = 1.0) -> Tuple[Any, OptState]:
     step = state.step + 1
-    gnorm = global_norm(grads)
+    grads = _like_state(grads, state.master)
+    gnorm = _value(global_norm(grads))
     scale = torch.clamp(
         _scalar(grad_clip, gnorm) / torch.clamp(gnorm, min=1e-9), max=1.0)
-    stepf = step.to(F32)
+    stepf = _value(step).to(F32)
     bc1 = 1 - torch.pow(_scalar(b1, stepf), stepf)
     bc2 = 1 - torch.pow(_scalar(b2, stepf), stepf)
 
     for master, g, m, v in zip(tree_leaves(state.master), tree_leaves(grads),
                                tree_leaves(state.m), tree_leaves(state.v)):
+        master, g, m, v = (_local(t) for t in (master, g, m, v))
         # the state's own storage, in pieces (``view`` refuses a copy)
         for mp, gp, mm, vv in zip(master.view(-1).split(PIECE),
                                   g.reshape(-1).split(PIECE),
@@ -124,19 +189,21 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
-def adafactor_init(params) -> OptState:
+def adafactor_init(params, specs: OptState = None, put=None) -> OptState:
+    """The state of ``params``, placed leaf by leaf as
+    :func:`adamw_init`'s."""
     def second_moment(p):
         zeros = lambda shape: torch.zeros(shape, dtype=F32, device=p.device)
         if _factored(p.shape):
             return (zeros(p.shape[:-1]),                         # row
                     zeros(p.shape[:-2] + p.shape[-1:]))          # column
-        return (zeros(p.shape),)
+        return (_zeros(p),)
 
     return OptState(
-        step=torch.zeros((), dtype=torch.int32, device=_device(params)),
-        master=tree_map(_master, params),
+        step=_step0(params, specs, put),
+        master=_new(_master, params, specs and specs.master, put),
         m=None,
-        v=tree_map(second_moment, params),
+        v=_new(second_moment, params, specs and specs.v, put),
     )
 
 
@@ -146,16 +213,17 @@ def adafactor_update(params, grads, state: OptState, *, lr: float,
                      clip_threshold: float = 1.0,
                      weight_decay: float = 0.0) -> Tuple[Any, OptState]:
     step = state.step + 1
-    beta2 = 1.0 - torch.pow(step.to(F32), -decay)
+    beta2 = 1.0 - torch.pow(_value(step).to(F32), -decay)
 
+    grads = _like_state(grads, state.master)
     for master, g, v in zip(tree_leaves(state.master), tree_leaves(grads),
                             tree_leaves(state.v)):
         g = g.to(F32)
         g2 = torch.square(g) + eps
         if len(v) == 2:
             vr, vc = v
-            vr.copy_(beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1))
-            vc.copy_(beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2))
+            _assign(vr, beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1))
+            _assign(vc, beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2))
             rfac = torch.rsqrt(
                 vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
                                  min=eps) + eps)
@@ -163,12 +231,12 @@ def adafactor_update(params, grads, state: OptState, *, lr: float,
             u = g * rfac[..., None] * cfac[..., None, :]
         else:
             (vf,) = v
-            vf.copy_(beta2 * vf + (1 - beta2) * g2)
+            _assign(vf, beta2 * vf + (1 - beta2) * g2)
             u = g * torch.rsqrt(vf + eps)
         # update clipping by RMS
         rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
         u = u / torch.clamp(rms / _scalar(clip_threshold, rms), min=1.0)
-        master.copy_(master - lr * (u + weight_decay * master))
+        _assign(master, master - lr * (u + weight_decay * master))
     _write_params(params, state.master)
     return params, OptState(step, state.master, None, state.v)
 
@@ -176,16 +244,15 @@ def adafactor_update(params, grads, state: OptState, *, lr: float,
 # ----------------------------- factory ----------------------------- #
 
 
-def _sgd_init(params) -> OptState:
-    return OptState(torch.zeros((), dtype=torch.int32,
-                                device=_device(params)), None, None, None)
+def _sgd_init(params, specs: OptState = None, put=None) -> OptState:
+    return OptState(_step0(params, specs, put), None, None, None)
 
 
 def _sgd_update(lr: float):
     @torch.no_grad()
     def update(params, grads, state: OptState) -> Tuple[Any, OptState]:
         for p, g in zip(tree_leaves(params), tree_leaves(grads)):
-            p.copy_(p - lr * g.to(p.dtype))
+            _assign(p, p - lr * g.to(p.dtype))
         return params, OptState(state.step + 1, None, None, None)
     return update
 

@@ -47,7 +47,10 @@ assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
         "repro_torch.optim", "repro_torch.optim.optimizers",
         "repro_torch.optim.grad_compress", "repro_torch.optim.convert",
         "repro_torch.data", "repro_torch.data.pipeline",
-        "repro_torch.train.step", "repro_torch.launch.train"
+        "repro_torch.train.step", "repro_torch.launch.train",
+        "repro_torch.distributed", "repro_torch.launch.mesh",
+        "repro_torch.launch.shardings", "repro_torch.launch.analytic",
+        "repro_torch.launch.mesh_train"
         } <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -74,6 +77,8 @@ from repro_torch.train import make_stream_plant_model
 from repro_torch import configs
 from repro_torch.models import build, params_from_jax
 from repro_torch.launch import serve, train
+from repro_torch.distributed import make_mesh, start_ranks
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serving import (EngineConfig, GraphServingEngine,
                                  ServingEngine)
 import numpy as np
@@ -98,6 +103,9 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: serve.main([]),
              lambda: train.train_loop("qwen3-8b", steps=1),
              lambda: train.main(["--steps", "1"]),
+             lambda: make_mesh((1, 1), ("data", "model")),
+             make_host_mesh,
+             lambda: start_ranks("unused", 0, 1),
              lambda: GraphServingEngine(cpu_model, 4, EngineConfig()),
              lambda: ServingEngine(cpu_model, 4, EngineConfig())):
     try:
