@@ -240,6 +240,21 @@ before it and read just after:
              36-layer config with AdamW on 1 card and on a (2, 2) mesh of
              4.  The process group ends with the phase.  The mesh path
              launches none of the five kernels (``launches_mesh``).
+19. pipe   — the GPipe pipeline (``repro_torch.train.pipeline``) on a
+             (1, 1) ("pod", "data") NCCL mesh of this process, one card
+             being one rank and one stage: (a) the CPU tests' gate cases
+             at S = 1 (the reference gate's tanh stack, D = 16, L 4 and
+             8, 1-4 microbatches of 8 rows, f32): outputs and gradients
+             of ``sum(out ** 2)`` bit for bit the port's sequential stack
+             on the card, within 1e-5 and PR 25's gradient bound of it on
+             the CPU; (b) qwen3-8b at full width cut to 8 of 36 layers
+             (bf16, full remat), 4 microbatches of 1 x 1,024 tokens: the
+             loss through the pipeline against ``transformer.forward`` a
+             microbatch at a time (``microbatch_loss``), loss and every
+             layer gradient bit for bit; first-call and warm forward +
+             backward times of both, in turns, and their peak memory.
+             The pipeline launches none of the five kernels
+             (``launches_pipe``).
 
 After every phase a ``memory`` line gives the device memory still
 allocated and what a collector pass then frees (memory that reference
@@ -289,7 +304,8 @@ launches on every path, 0 in phase 14, phase 15's as ``launches_serve``,
 phase 16(d)'s as ``launches_train_binding``, and the shapes of every
 path's inputs it was held to; every kernel's ``launches_train``, its
 launches over phase 16(a)-(c), ``launches_shard``, over phase 17, and
-``launches_mesh``, over phase 18(a)-(b)).
+``launches_mesh``, over phase 18(a)-(b), and ``launches_pipe``, over
+phase 19(a)-(b)).
 Any failed check exits non-zero before the last line, which is ``{"ok":
 true, "device": {...}}`` on success.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -3557,6 +3573,211 @@ def mesh_phase(card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the GPipe pipeline on a one-card mesh
+# --------------------------------------------------------------------- #
+
+#: (a) The CPU tests' gate cases at S = 1 (``tests/_torch_pipeline_ref.py``):
+#: (layers, microbatches) of the reference gate's stack, D = 16,
+#: microbatches of 8 rows, f32, inputs drawn by numpy from the case's
+#: index.
+PIPE_GATE_CASES = ((4, 4), (4, 1), (4, 3), (8, 4), (8, 2))
+PIPE_GATE_D, PIPE_GATE_ROWS = 16, 8
+#: (b) qwen3-8b at full width cut to TRAIN_FULL_LAYERS layers: microbatches
+#: x rows x tokens, and the warm forward + backward runs of each path.
+PIPE_MICRO, PIPE_ROWS, PIPE_SEQ, PIPE_WARM = 4, 1, 1024, 3
+PIPE_AXES = ("pod", "data")
+
+
+def pipe_gate_stage(w, x):
+    """The reference gate's stage: ``x -> tanh(x @ w)`` for each layer."""
+    import torch
+
+    for wi in w:
+        x = torch.tanh(x @ wi)
+    return x
+
+
+def pipe_outside(got, want) -> int:
+    """Entries of ``got`` past PR 25's gradient bound around ``want``:
+    ``1e-5 max(1, max|g|) + 1e-4 |g|``."""
+    atol = TRAIN_ATOL * max(1.0, float(want.abs().max()))
+    return int(((got - want).abs() > atol + TRAIN_RTOL * want.abs()).sum())
+
+
+def pipe_gate(card: str, mesh) -> dict:
+    """(a) The gate's stack on the pipeline over the (1, 1) mesh's "pod"
+    axis, outputs and gradients of ``sum(out ** 2)``: bit for bit the
+    port's sequential stack on the card, and within 1e-5 (outputs) and
+    the gradient bound of the same stack on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.train.pipeline import pipeline_apply, place_stages
+
+    out = {}
+    for i, (layers, n) in enumerate(PIPE_GATE_CASES):
+        rng = np.random.default_rng(i)
+        ws_np = (rng.standard_normal((layers, PIPE_GATE_D, PIPE_GATE_D))
+                 * 0.3).astype(np.float32)
+        x_np = rng.standard_normal(
+            (n, PIPE_GATE_ROWS, PIPE_GATE_D)).astype(np.float32)
+
+        def leaves(dev):
+            return (torch.from_numpy(ws_np).to(dev).requires_grad_(),
+                    torch.from_numpy(x_np).to(dev).requires_grad_())
+
+        def stack(dev):
+            ws, x = leaves(dev)
+            o = torch.stack([pipe_gate_stage(ws, xm) for xm in x])
+            (o ** 2).sum().backward()
+            return o.detach(), ws.grad, x.grad
+
+        ws, x = leaves(DEVICE)
+        stages = place_stages(ws, mesh)
+        o = pipeline_apply(pipe_gate_stage, stages, x, mesh)
+        (o ** 2).sum().backward()
+        got = (o.detach(), stages.grad.full_tensor().reshape(ws.shape),
+               x.grad)
+        on_card, on_cpu = stack(DEVICE), stack("cpu")
+        what = f"pipe gate L={layers} n_micro={n}"
+        same = all(torch.equal(a, b) for a, b in zip(got, on_card))
+        check(same, f"{what}: not bit for bit the card's stack")
+        err = float((got[0].cpu() - on_cpu[0]).abs().max())
+        check(err < 1e-5, f"{what}: outputs {err:.3g} from the CPU's")
+        outside = sum(pipe_outside(g.cpu(), w)
+                      for g, w in zip(got[1:], on_cpu[1:]))
+        check(outside == 0, f"{what}: {outside} gradient entries past "
+                            "the bound of the CPU's")
+        out[f"L{layers}_n{n}"] = {
+            "bit_for_bit_card_stack": same, "out_max_abs_vs_cpu": err,
+            "grad_max_abs_vs_cpu": max(
+                float((g.cpu() - w).abs().max())
+                for g, w in zip(got[1:], on_cpu[1:]))}
+    emit(card, phase="pipe", case="gate", cases=out)
+    return out
+
+
+def pipe_full(card: str, mesh) -> dict:
+    """(b) qwen3-8b at full width cut to TRAIN_FULL_LAYERS layers (bf16,
+    full remat): the loss of PIPE_MICRO microbatches of PIPE_ROWS x
+    PIPE_SEQ tokens and its gradients, the layer stack on the pipeline
+    (one stage) against ``transformer.forward`` a microbatch at a time
+    (``train.pipeline.microbatch_loss``): loss and every layer gradient
+    bit for bit; the first call's time, the warm forward + backward time
+    (median of PIPE_WARM runs, the two paths in turns) and the peak
+    memory of each (of the warm runs, each alone; the pipeline's first
+    run also holds the plain run's gradients for the comparison)."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.pipeline import microbatch_loss, place_stages
+
+    cfg = dataclasses.replace(configs.get("qwen3-8b"),
+                              n_layers=TRAIN_FULL_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build(cfg, DEVICE, seed=0).requires_grad_(True)
+    batch = next(SyntheticTokens(PIPE_MICRO * PIPE_ROWS, PIPE_SEQ,
+                                 cfg.vocab_size, seed=1))
+    params = model.params
+    layers = tree_leaves(params["layers"])
+    rest = tree_leaves({k: v for k, v in params.items() if k != "layers"})
+    stages = place_stages(params["layers"], mesh)
+
+    def run(piped: bool):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if piped:
+            loss = microbatch_loss(model, batch, PIPE_MICRO, mesh, stages)
+            grads = torch.autograd.grad(loss, tree_leaves(stages) + rest)
+        else:
+            loss = microbatch_loss(model, batch, PIPE_MICRO)
+            grads = torch.autograd.grad(loss, layers + rest)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grads = [g.full_tensor().reshape(p.shape) if i < len(layers)
+                 and piped else g for i, (g, p) in
+                 enumerate(zip(grads, layers + rest))]
+        return loss.detach(), grads, wall, torch.cuda.max_memory_allocated()
+
+    l_plain, g_plain, *plain = run(False)
+    l_pipe, g_pipe, *pipe = run(True)
+    runs = {"plain": [plain], "pipe": [pipe]}     # (wall, peak) each
+    rec = {"loss_plain": float(l_plain), "loss_pipe": float(l_pipe),
+           "loss_bit_for_bit": bool(torch.equal(l_plain, l_pipe)),
+           "layer_grads_bit_for_bit": all(
+               torch.equal(a, b) for a, b in zip(g_pipe[:len(layers)],
+                                                 g_plain[:len(layers)])),
+           "other_grads_bit_for_bit": all(
+               torch.equal(a, b) for a, b in zip(g_pipe[len(layers):],
+                                                 g_plain[len(layers):])),
+           "grad_max_abs": max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(g_pipe, g_plain))}
+    check(math.isfinite(rec["loss_plain"]),
+          f"pipe full: loss {rec['loss_plain']}")
+    check(rec["loss_bit_for_bit"] and rec["layer_grads_bit_for_bit"],
+          f"pipe full: not bit for bit the plain forward: {rec}")
+    del g_plain, g_pipe
+    for name, piped in (("plain", False), ("pipe", True)) * PIPE_WARM:
+        gc.collect()
+        runs[name].append(run(piped)[2:])
+    tokens = PIPE_MICRO * PIPE_ROWS * PIPE_SEQ
+    for name, rs in runs.items():
+        warm = statistics.median(r[0] for r in rs[1:])
+        rec[name] = {"first_s": rs[0][0], "walls_s": [r[0] for r in rs],
+                     "warm_s": warm, "tokens_per_s": tokens / warm,
+                     "peak_bytes": max(r[1] for r in rs[1:]),
+                     "first_peak_bytes": rs[0][1]}
+    del runs, stages, model, params, layers, rest
+    torch.cuda.empty_cache()
+    emit(card, phase="pipe", case="qwen3-8b_full",
+         config=f"qwen3-8b, {TRAIN_FULL_LAYERS} of 36 layers, bf16, "
+                f"remat {cfg.remat}",
+         microbatches=[PIPE_MICRO, PIPE_ROWS, PIPE_SEQ],
+         tokens_per_step=tokens, **rec)
+    return rec
+
+
+def pipe_phase(card: str) -> dict:
+    """Phase 19 on a (1, 1) ("pod", "data") NCCL mesh of this process
+    (one card is one rank, one stage), with the launch counts reset just
+    before (a)-(b) and read just after (the pipeline launches no
+    hand-written kernel); the process group ends with the phase."""
+    import os
+    import tempfile
+
+    from repro_torch import distributed as D
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pipe_") as tmp:
+        D.start_ranks(os.path.join(tmp, "store"), 0, 1, DEVICE)
+        try:
+            mesh = D.make_mesh((1, 1), PIPE_AXES, DEVICE)
+            reset_launch_counts()
+            gate = pipe_gate(card, mesh)
+            full = pipe_full(card, mesh)
+            counts = launch_counts()
+        finally:
+            D.end_ranks()
+    check(not any(counts.values()),
+          f"pipe: a hand-written kernel launched: {counts}")
+    emit(card, phase="pipe", case="summary",
+         seconds=time.perf_counter() - t0, launches=counts,
+         gate_cases=len(gate),
+         full_bit_for_bit=full["layer_grads_bit_for_bit"],
+         warm_s_pipe=full["pipe"]["warm_s"],
+         warm_s_plain=full["plain"]["warm_s"])
+    return counts
+
+
 def sync() -> None:
     import torch
 
@@ -4114,6 +4335,7 @@ def main() -> int:
         launches_train, binding = probed("train", train_phase(card))
         launches_shard = probed("shard", sharding_phase(card))
         launches_mesh = probed("mesh", mesh_phase(card))
+        launches_pipe = probed("pipe", pipe_phase(card))
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -4152,6 +4374,7 @@ def main() -> int:
             row["launches_train"] = launches_train.get(row["name"], 0)
             row["launches_shard"] = launches_shard.get(row["name"], 0)
             row["launches_mesh"] = launches_mesh.get(row["name"], 0)
+            row["launches_pipe"] = launches_pipe.get(row["name"], 0)
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

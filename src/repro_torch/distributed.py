@@ -537,14 +537,18 @@ def mesh_context():
 
 
 def start_ranks(store: Optional[Union[str, os.PathLike]], rank: int,
-                world_size: int, device: DeviceLike = None) -> torch.device:
+                world_size: int, device: DeviceLike = None,
+                timeout: Optional[float] = None) -> torch.device:
     """Join this process to a group of ``world_size`` ranks that meet at
     the file ``store`` (a path every rank names, under a temporary
     directory: ``file://``, no network), or, with ``store`` None, at the
     rendezvous ``torchrun`` set up (``env://``).  ``device`` "cpu" takes
     gloo; the default, the card, takes NCCL on card ``rank`` of the host
-    and raises without one (no fallback to gloo).  Returns this rank's
-    device."""
+    and raises without one (no fallback to gloo).  ``timeout`` (seconds)
+    bounds each wait of the group's operations (default: the backend's).
+    Returns this rank's device."""
+    import datetime
+
     import torch.distributed as dist
 
     dev = resolve_device(device)
@@ -555,6 +559,8 @@ def start_ranks(store: Optional[Union[str, os.PathLike]], rank: int,
     else:
         backend = "gloo"
     kw = {"device_id": dev} if dev.type == "cuda" else {}
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     init = "env://" if store is None else f"file://{store}"
     dist.init_process_group(backend, init_method=init,
                             rank=rank, world_size=world_size, **kw)

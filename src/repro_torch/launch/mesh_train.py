@@ -131,8 +131,9 @@ def train_on_mesh(cfg: ModelConfig, mesh, batches: Sequence[Dict],
 
 
 def _rank_main(rank: int, world: int, store: Optional[str], device: str,
-               fn: Callable, args: tuple) -> None:
-    dev = D.start_ranks(store, rank, world, device)
+               fn: Callable, args: tuple,
+               timeout: Optional[float] = None) -> None:
+    dev = D.start_ranks(store, rank, world, device, timeout)
     if dev.type == "cpu":   # the host's cores shared among its ranks
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     try:
@@ -142,17 +143,19 @@ def _rank_main(rank: int, world: int, store: Optional[str], device: str,
 
 
 def spawn(fn: Callable, world_size: int, *args,
-          device: DeviceLike = None) -> None:
+          device: DeviceLike = None, timeout: Optional[float] = None) -> None:
     """``fn(rank, device, *args)`` in ``world_size`` new processes of this
     host, joined in one group (gloo for ``device="cpu"``, else NCCL on
     card ``rank``); returns when all have ended and raises if one failed.
-    ``fn`` and ``args`` must pickle (a module-level function)."""
+    ``timeout`` (seconds) bounds each wait of the group's operations, so a
+    rank whose partner never comes raises.  ``fn`` and ``args`` must
+    pickle (a module-level function)."""
     import torch.multiprocessing as mp
 
     dev = str(device) if device is not None else "cuda"
     with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
         mp.spawn(_rank_main, args=(world_size, os.path.join(tmp, "store"),
-                                   dev, fn, args),
+                                   dev, fn, args, timeout),
                  nprocs=world_size, join=True)
 
 

@@ -481,11 +481,20 @@ def remat_call(cfg: ModelConfig, fn: Callable, lp: Dict, *args):
                       preserve_rng_state=False, **kw)
 
 
+def layer_stack(layers, cfg: ModelConfig, x, positions) -> torch.Tensor:
+    """Run the stacked ``layers`` (leading dimension the depth) on ``x``,
+    each layer under ``cfg.remat``: the whole stack for :func:`forward`,
+    one stage's slice for :mod:`repro_torch.train.pipeline`."""
+    depth = L.tree_leaves(layers)[0].shape[0]
+    for lp in L.layers(layers, depth):
+        x = remat_call(cfg, _layer, lp, cfg, x, positions)
+    return x
+
+
 def forward(params, cfg: ModelConfig, x_embed, positions) -> torch.Tensor:
     """Run the layer stack on embedded inputs; returns final hidden."""
     x = constrain(x_embed, "dp", _seq_axis(cfg), None)
-    for lp in L.layers(params["layers"], cfg.n_layers):
-        x = remat_call(cfg, _layer, lp, cfg, x, positions)
+    x = layer_stack(params["layers"], cfg, x, positions)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

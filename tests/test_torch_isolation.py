@@ -50,7 +50,7 @@ assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
         "repro_torch.train.step", "repro_torch.launch.train",
         "repro_torch.distributed", "repro_torch.launch.mesh",
         "repro_torch.launch.shardings", "repro_torch.launch.analytic",
-        "repro_torch.launch.mesh_train"
+        "repro_torch.launch.mesh_train", "repro_torch.train.pipeline"
         } <= set(names), names
 for name in names:
     importlib.import_module(name)
