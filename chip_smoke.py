@@ -149,16 +149,17 @@ before it and read just after:
              replays once an interval, its reconfiguration program once a
              reconfiguration, and the greedy launches once per
              reconfiguration (+1 in the warm-up before that program's
-             capture); (b) qwen3-8b at its full config (bf16, 36 layers)
-             behind both engines: 4 streams, 16 slots, 512 positions,
-             pages of 16 tokens, 256 pages, a reconfiguration every 32
-             steps, 32 requests (stream 0 a shared 48-token prefix): the
-             host engine once, the device engine cold (with its captures)
-             and warm, schedules equal to the host engine's (slot shares
-             within 1e-6: float32 against float64), tokens equal under the
-             token rule (``tests/_torch_serving_ref.py``: a request may
-             part from the host engine's tokens only at a step where the
-             host's top-2 logit gap is at most 1e-5 + 1e-4 |top|), every
+             capture); (b) qwen3-8b at full width (bf16) cut to 8 of 36
+             layers (SERVE_LAYERS) behind both engines: 4 streams, 16
+             slots, 512 positions, pages of 16 tokens, 256 pages, a
+             reconfiguration every 32 steps, 32 requests (stream 0 a
+             shared 48-token prefix): the host engine once, the device
+             engine cold (with its captures) and warm, schedules equal to
+             the host engine's (slot shares within 1e-6: float32 against
+             float64), tokens equal under the token rule
+             (``tests/_torch_serving_ref.py``: a request may part from the
+             host engine's tokens only at a step where the host's top-2
+             logit gap is at most 1e-5 + 1e-4 |top|), every
              partition summing to 256 above its floor; walls, tokens/s,
              ms a step, capture seconds, the card's busy share over one
              profiled warm interval, peak memory and the idle tail steps;
@@ -194,7 +195,7 @@ before it and read just after:
              [cuda:0] * N)`` (the split runs block by block on the one
              card): the 4096-mix sweep and ``fig5_potential``'s 640
              workloads on 2 shards, the 32-mix sweep and one
-             ``run_timeline`` (CBP over the 32 mixes, 20 ms) on 7, each
+             ``run_timeline`` (CBP over the 32 mixes, 20 ms) on 3, each
              against its unsharded run on the card: discrete outputs
              (units, prefetch, active, top-k indices) exactly equal, floats
              within rtol 1e-12; walls, the shard grid, the largest
@@ -206,13 +207,14 @@ before it and read just after:
              qwen3-8b smoke model, 8 groups on 8 blocks and 16 on 4 (also
              on a forced (4, 4, 2, 2) grid, whose blocks hold groups that
              are not contiguous), each against the unsharded card run and
-             the port's CPU sharded run; (f) qwen3-8b at its full config
-             at phase 15(b)'s engine configuration, 2 groups on 2 blocks
-             against the unsharded 2-group engine, 16 requests.  Tokens
-             equal under the token rule, every other discrete output
-             exactly, slot shares and queue waits within 1e-6; one
-             interval replay a block an interval, one reconfiguration
-             replay and one greedy launch a reconfiguration a block runs
+             the port's CPU sharded run; (f) phase 15(b)'s model
+             (qwen3-8b, 8 of 36 layers) at its engine configuration, 2
+             groups on 2 blocks against the unsharded 2-group engine, 16
+             requests.  Tokens equal under the token rule, every other
+             discrete output exactly, slot shares and queue waits within
+             1e-6; one interval replay a block an interval, one
+             reconfiguration replay and one greedy launch a
+             reconfiguration a block runs
              (+1 a block in the warm-up before its capture); the largest
              logit difference between one decode of the whole batch and
              the same rows in the blocks' batches; for (f) the plan, ms a
@@ -255,6 +257,24 @@ before it and read just after:
              backward times of both, in turns, and their peak memory.
              The pipeline launches none of the five kernels
              (``launches_pipe``).
+20. dry    — the dry run (``repro_torch.launch.dryrun``,
+             ``launch/op_costs.py``) in two subprocesses of its own (a
+             fake process group is process state; ``python3
+             chip_smoke.py --dry-worker step|cell OUT``, each bounded by
+             DRY_TIMEOUT; ``cell``, which needs no card, starts after
+             the build and runs beside phases 2-19): (a) phase
+             16(c)'s cell (qwen3-8b cut to 8 of 36 layers, 4 x 1,024
+             tokens, AdamW) counted on ``meta`` tensors as rank 0 of a
+             fake (1, 1) group with a card mesh, then the same step run
+             for real on the card: the counted FLOPs equal
+             ``FlopCounterMode``'s count of the real step exactly, the
+             peak estimate is within DRY_PEAK_RTOL of its
+             ``max_memory_allocated``, the step-time bound printed beside
+             the warm step; (b) qwen3-8b ``train_4k`` on the single pod,
+             a fake group of 256 ranks with a card mesh: status ``ok``,
+             its counts, dominant term, trace seconds and per-device peak
+             beside ``analytic_memory``.  The dry run launches none of
+             the five kernels (``launches_dry``).
 
 After every phase a ``memory`` line gives the device memory still
 allocated and what a collector pass then frees (memory that reference
@@ -304,8 +324,8 @@ launches on every path, 0 in phase 14, phase 15's as ``launches_serve``,
 phase 16(d)'s as ``launches_train_binding``, and the shapes of every
 path's inputs it was held to; every kernel's ``launches_train``, its
 launches over phase 16(a)-(c), ``launches_shard``, over phase 17, and
-``launches_mesh``, over phase 18(a)-(b), and ``launches_pipe``, over
-phase 19(a)-(b)).
+``launches_mesh``, over phase 18(a)-(b), ``launches_pipe``, over
+phase 19(a)-(b), and ``launches_dry``, over phase 20).
 Any failed check exits non-zero before the last line, which is ``{"ok":
 true, "device": {...}}`` on success.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -828,7 +848,10 @@ def device_profile(fn, kernel: str = "", categories=None) -> dict:
     profiled wall does not (tracing slows the host).  Values are None
     where the profiler saw no device events.  ``categories`` ({category:
     name substrings}, tried in order; the rest is "other") adds the
-    device time by category."""
+    device time by category.  Only the device is traced, and its events
+    are read as the tracer gives them: nothing here reads host-side
+    operator events, and building their event tree takes the host about
+    a minute for a sweep."""
     import collections
 
     import torch
@@ -836,20 +859,21 @@ def device_profile(fn, kernel: str = "", categories=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
     by_name = collections.Counter()
     by_category = collections.Counter()
     for e in dev:
-        seconds = e.time_range.elapsed_us() / 1e6
-        by_name[e.name[:80]] += seconds
+        seconds = e.duration_ns() / 1e9
+        name = e.name()
+        by_name[name[:80]] += seconds
         if categories:
             by_category[next((c for c, keys in categories.items()
-                              if any(k in e.name for k in keys)),
+                              if any(k in name for k in keys)),
                              "other")] += seconds
     device_s = sum(by_name.values())
     part_s = sum(v for k, v in by_name.items() if kernel and kernel in k)
@@ -2240,7 +2264,7 @@ def models_phase(card: str) -> dict:
 # phase 15: the serving path
 # --------------------------------------------------------------------- #
 
-#: (b) qwen3-8b at its full config behind both serving engines: 4
+#: (b) qwen3-8b (SERVE_LAYERS layers) behind both serving engines: 4
 #: streams, 16 slots, 512 cache positions, pages of 16 tokens, 256 pages
 #: (the sweep's U), a reconfiguration every 32 steps; 32 requests from
 #: ``default_rng(0)`` (:func:`serve_requests`).
@@ -2248,6 +2272,10 @@ SERVE_STREAMS, SERVE_SLOTS, SERVE_MAX_LEN = 4, 16, 512
 SERVE_PAGE_TOKENS, SERVE_PAGES, SERVE_INTERVAL = 16, 256, 32
 SERVE_REQUESTS, SERVE_HOT_PREFIX = 32, 48
 SERVE_MAX_STEPS = 10_000
+#: (b)-(c) and phase 17(f) run qwen3-8b at full width cut to 8 of its 36
+#: layers, as phases 16(c) and 18-20 do: the depth sets the engines' step
+#: time, and with it most of the two phases' seconds.
+SERVE_LAYERS = 8
 #: slot_share is float32 in the device engine, float64 in the host one.
 SERVE_SHARE_RTOL = 1e-6
 
@@ -2296,6 +2324,17 @@ def serve_requests(vocab: int):
         reqs.append(Request(stream, prompt.astype(np.int32),
                             int(rng.integers(16, 49))))
     return reqs
+
+
+def serve_model_config():
+    """Phase 15(b)-(c)'s and 17(f)'s model: qwen3-8b at full width, cut
+    to SERVE_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("qwen3-8b"),
+                               n_layers=SERVE_LAYERS)
 
 
 def serve_first_boundary():
@@ -2419,20 +2458,19 @@ def serve_smoke(card: str) -> dict:
 
 
 def serve_full(card: str) -> dict:
-    """(b) and (c): qwen3-8b at its full config (bf16, 36 layers) behind
-    the host engine once and the device engine cold, warm and for one
-    profiled interval; then the device engine with CBP off."""
+    """(b) and (c): qwen3-8b at full width (bf16) cut to SERVE_LAYERS
+    layers behind the host engine once and the device engine cold, warm
+    and for one profiled interval; then the device engine with CBP off."""
     import dataclasses
     import gc
 
     import numpy as np
     import torch
-    from repro_torch import configs
     from repro_torch.models import build
     from repro_torch.serving import GraphServingEngine, ServingEngine
 
     ref = serve_ref()
-    cfg = configs.get("qwen3-8b")
+    cfg = serve_model_config()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, build_s = synced_wall(lambda: build(cfg, DEVICE, seed=0))
@@ -2972,12 +3010,14 @@ def train_phase(card: str) -> tuple:
 
 #: Shards forced on the one card (``use_devices([cuda:0] * N)``): the full
 #: sweep and Fig. 5's study on 2, the 32-mix sweep and one
-#: ``run_timeline`` on 7 (a prime count).  Discrete outputs exactly equal
-#: the unsharded run's, floats within SHARD_RTOL.
-SHARD_FULL, SHARD_SMALL = 2, 7
+#: ``run_timeline`` on 3 (a prime count, so the blocks are uneven; each
+#: block pays the host dispatch of every slot, so the wall grows with the
+#: count).  Discrete outputs exactly equal the unsharded run's, floats
+#: within SHARD_RTOL.
+SHARD_FULL, SHARD_SMALL = 2, 3
 SHARD_RTOL = 1e-12
-#: ``run_timeline``'s timeline (the reference tests' 20 ms): each of the 7
-#: blocks pays the host dispatch of every slot, ~2 s at 100 ms.
+#: ``run_timeline``'s timeline (the reference tests' 20 ms): each block
+#: pays the host dispatch of every slot, ~2 s at 100 ms.
 SHARD_TIMELINE_MS = 20.0
 
 
@@ -3030,7 +3070,7 @@ SHARD_SERVE_CASES = {
     "parity_16_on_4": (16, 4, None),
     "parity_16_on_4_grid_4x4": (16, 4, (4, 4, 2, 2)),
 }
-#: (f) qwen3-8b at its full config at phase 15(b)'s engine configuration,
+#: (f) phase 15(b)'s model at its engine configuration,
 #: 2 groups on 2 forced blocks against the unsharded 2-group engine; the
 #: first 16 of phase 15(b)'s 32 requests.
 SHARD_FULL_GROUPS, SHARD_FULL_REQUESTS = 2, 16
@@ -3246,8 +3286,8 @@ def serve_shards(card: str) -> dict:
         del eng
     del card_model, cpu
 
-    # (f) qwen3-8b at its full config, 2 groups on 2 blocks
-    full_cfg = configs.get("qwen3-8b")
+    # (f) qwen3-8b at full width, SERVE_LAYERS layers, 2 groups on 2 blocks
+    full_cfg = serve_model_config()
     if on_card():
         torch.cuda.empty_cache()
     model = build(full_cfg, DEVICE, seed=0)
@@ -3282,7 +3322,8 @@ def serve_shards(card: str) -> dict:
     check(len(eng.block_groups) == SHARD_FULL_GROUPS,
           f"shard serve full: blocks {eng.block_groups}")
     launch_rule(eng, counts, "shard serve full")
-    out = {"config": full_cfg.name, "requests": len(reqs),
+    out = {"config": full_cfg.name, "n_layers": full_cfg.n_layers,
+           "requests": len(reqs),
            "weight_bytes": weight_bytes(model),
            "unsharded": unsharded,
            "sharded": {**rates(eng, reqs, wall, peak),
@@ -3312,7 +3353,7 @@ def sharding_phase(card: str) -> dict:
     each against its unsharded run on the card (run first, outside the
     count): the 4096-mix sweep and ``fig5_potential`` on 2 shards, the
     32-mix sweep and one ``run_timeline`` (CBP over the 32 mixes, 20 ms)
-    on 7; then the serving engine's groups (:func:`serve_shards`).
+    on 3; then the serving engine's groups (:func:`serve_shards`).
     The launch counts are reset just before the sharded runs and read
     just after; returns their sums."""
     import torch
@@ -3775,6 +3816,223 @@ def pipe_phase(card: str) -> dict:
          full_bit_for_bit=full["layer_grads_bit_for_bit"],
          warm_s_pipe=full["pipe"]["warm_s"],
          warm_s_plain=full["plain"]["warm_s"])
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# phase 20: the dry run, in a process of its own
+# --------------------------------------------------------------------- #
+
+#: (b) The production cell the phase runs: (arch, shape, mesh).
+DRY_CELL = ("qwen3-8b", "train_4k", "single")
+#: (a) The peak estimate's largest share off the real step's
+#: ``max_memory_allocated``.
+DRY_PEAK_RTOL = 0.15
+#: Seconds each of the phase's subprocesses may take, from its start.
+DRY_TIMEOUT = 400
+
+
+def dry_worker(part: str, out_path: str) -> int:
+    """Phase 20's work, run as ``python3 chip_smoke.py --dry-worker PART
+    OUT`` (a fake process group is process state).  ``step``: (a) phase
+    16(c)'s cell counted on a fake (1, 1) group with a card mesh, then the
+    same step run for real on the card, counted by ``FlopCounterMode``;
+    ``cell``: (b) the production cell ``DRY_CELL``, on ``meta`` tensors
+    alone.  Either writes one JSON object, with the launch counts over its
+    work, to ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import importlib
+    import statistics
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch import distributed as D
+    from repro_torch.core.dispatch import launch_counts, reset_launch_counts
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import dryrun, op_costs
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import build
+    from repro_torch.models.model import ShapeSpec
+    from repro_torch.train import TrainStepConfig, build_train_step
+
+    from repro_torch.kernels import build as kernel_build
+
+    for name in kernel_build.SOURCES:   # every kernel's launch counter
+        importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()
+    out = {}
+    if part == "cell":
+        # (b) one production cell on a fake group of 256 ranks, card mesh
+        arch, shape, mesh_kind = DRY_CELL
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+            out["cell"] = dryrun.run_cell(arch, shape, mesh_kind,
+                                          force=True, device=DEVICE,
+                                          results_dir=tmp)
+        out["cell_wall_s"] = time.perf_counter() - t0
+        out["launches"] = launch_counts()
+        Path(out_path).write_text(json.dumps(out))
+        return 0
+
+    cfg = dataclasses.replace(configs.get("qwen3-8b"),
+                              n_layers=TRAIN_FULL_LAYERS)
+    spec = ShapeSpec("train", TRAIN_FULL_S, TRAIN_FULL_B, "train")
+
+    # (a) the dry cell: rank 0 of a fake (1, 1) group, meta tensors
+    D.start_fake_ranks(1)
+    try:
+        mesh = D.make_mesh((1, 1), ("data", "model"), DEVICE)
+        D.set_dp_axes(sh.dp_axes_for(cfg))
+        with D.use_mesh(mesh):
+            t0 = time.perf_counter()
+            fn, args = dryrun.build_cell(dryrun.meta_model(cfg), spec, mesh,
+                                         "adamw", 1)
+            _, cost, counter = op_costs.trace(fn, *args)
+            out["trace_s"] = time.perf_counter() - t0
+        out["dry"] = dryrun.record(cfg, spec, 1, "adamw", cost, counter)
+    finally:
+        D.set_dp_axes(D.DP_AXES)
+        D.end_ranks()
+
+    # (a) the same step for real on the card: a cold step, one for the
+    # peak, one under FlopCounterMode, two warm
+    model = build(cfg, DEVICE, seed=0)
+    init_opt, step = build_train_step(model, TrainStepConfig(
+        optimizer="adamw", lr=TRAIN_FULL_LR))
+    params = model.params
+    opt = init_opt(params)
+    batches = SyntheticTokens(TRAIN_FULL_B, TRAIN_FULL_S, cfg.vocab_size,
+                              seed=1)
+    (params, opt, _), cold = synced_wall(
+        lambda: step(params, opt, next(batches)))
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt, _), wall = synced_wall(
+        lambda: step(params, opt, next(batches)))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        params, opt, _ = step(params, opt, next(batches))
+    out["flop_counter_flops"] = float(fc.get_total_flops())
+    walls = [wall]
+    for _ in range(2):
+        (params, opt, _), wall = synced_wall(
+            lambda: step(params, opt, next(batches)))
+        walls.append(wall)
+    out["cold_step_s"], out["warm_step_s"] = cold, statistics.median(walls)
+    out["launches"] = launch_counts()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+class DryWorker:
+    """One part of :func:`dry_worker` in a subprocess of its own, its
+    output and errors in a temporary directory."""
+
+    def __init__(self, part: str):
+        import tempfile
+
+        self.part = part
+        self.tmp = tempfile.TemporaryDirectory(prefix=f"dry_{part}_")
+        self.out_path = Path(self.tmp.name) / "out.json"
+        self.err = open(Path(self.tmp.name) / "stderr.txt", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dry-worker",
+             part, str(self.out_path)],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=self.err, text=True)
+
+    def result(self) -> dict:
+        """Wait for the worker (up to DRY_TIMEOUT from its start) and
+        return what it wrote; a worker that fails or runs past its time
+        fails the phase."""
+        left = DRY_TIMEOUT - (time.perf_counter() - self.t0)
+        try:
+            self.proc.wait(timeout=max(left, 0.0))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise SmokeFailure(f"dry: the {self.part} worker ran past "
+                               f"{DRY_TIMEOUT} s")
+        self.err.seek(0)
+        check(self.proc.returncode == 0 and self.out_path.exists(),
+              f"dry: the {self.part} worker failed "
+              f"({self.proc.returncode}):\n{self.err.read()[-3000:]}")
+        return json.loads(self.out_path.read_text())
+
+    def stop(self) -> None:
+        """End the worker if it still runs, and remove its files."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        self.tmp.cleanup()
+
+
+def dry_phase(card: str, cell_worker: DryWorker) -> dict:
+    """Phase 20: :func:`dry_worker`'s two parts in subprocesses (the
+    launch counts are reset just before each part's work and read just
+    after, in it; the counts returned are their sums).  (b) the production
+    cell needs no card: ``cell_worker`` ran it beside the earlier phases
+    (it started after the build); (a) the step runs now.  (a) The counted
+    FLOPs of phase 16(c)'s cell equal ``FlopCounterMode``'s count of the
+    real step exactly, and the peak estimate is within DRY_PEAK_RTOL of
+    the real step's ``max_memory_allocated``; (b) the production cell's
+    status is ``ok``.  Prints the step-time bound beside the warm step,
+    and the production cell's counts, dominant term, trace seconds and
+    per-device peak beside ``analytic_memory``."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()   # the subprocess needs the card's memory
+    step_worker = DryWorker("step")
+    try:
+        res = step_worker.result()
+    finally:
+        step_worker.stop()
+    cell_res = cell_worker.result()
+    dry, cell = res["dry"], cell_res["cell"]
+    counted = dry["counted"]["flops_per_device"]
+    check(counted == res["flop_counter_flops"],
+          f"dry (a): counted FLOPs {counted} != FlopCounterMode's "
+          f"{res['flop_counter_flops']} of the real step")
+    estimate = dry["memory"]["peak_estimate_bytes"]
+    share = abs(estimate - res["peak_bytes"]) / res["peak_bytes"]
+    emit(card, phase="dry", case="qwen3-8b_8_layers_1x1",
+         flops_counted=counted, flops_real=res["flop_counter_flops"],
+         flops_global=dry["counted"]["flops_global"],
+         peak_estimate_bytes=estimate, max_memory_allocated=res["peak_bytes"],
+         peak_share_off=share, argument_bytes=dry["memory"]["argument_bytes"],
+         analytic=dry["memory"]["analytic"],
+         step_time_bound_s=dry["roofline"]["step_time_bound_s"],
+         dominant=dry["roofline"]["dominant"],
+         roofline=dry["roofline"], warm_step_s=res["warm_step_s"],
+         cold_step_s=res["cold_step_s"], trace_s=res["trace_s"])
+    check(share <= DRY_PEAK_RTOL,
+          f"dry (a): peak estimate {estimate} is {share:.3f} off the real "
+          f"step's {res['peak_bytes']} (limit {DRY_PEAK_RTOL})")
+    check(cell["status"] == "ok",
+          f"dry (b): {'/'.join(DRY_CELL)} {cell['status']}: "
+          f"{cell.get('error')}\n{cell.get('traceback', '')[-2000:]}")
+    emit(card, phase="dry", case="/".join(DRY_CELL), chips=cell["chips"],
+         counted=cell["counted"], dominant=cell["roofline"]["dominant"],
+         roofline=cell["roofline"], trace_s=cell["trace_s"],
+         build_s=cell["build_s"], worker_wall_s=cell_res["cell_wall_s"],
+         peak_estimate_bytes=cell["memory"]["peak_estimate_bytes"],
+         argument_bytes=cell["memory"]["argument_bytes"],
+         analytic=cell["memory"]["analytic"])
+    counts = {k: v + cell_res["launches"].get(k, 0)
+              for k, v in res["launches"].items()}
+    check(set(build.SOURCES) <= set(counts) and not any(counts.values()),
+          f"dry: a hand-written kernel launched: {counts}")
+    emit(card, phase="dry", case="summary",
+         seconds=time.perf_counter() - t0, launches=counts)
     return counts
 
 
@@ -4294,6 +4552,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    cell_worker = None
     try:
         from repro_torch.kernels import build
 
@@ -4306,6 +4565,8 @@ def main() -> int:
              ptxas={k: [ln.strip() for ln in v.splitlines()
                         if "Used" in ln or "spill" in ln]
                     for k, v in logs.items()})
+        # phase 20(b) needs no card: it runs beside phases 2-19
+        cell_worker = DryWorker("cell")
 
         G = boundary_groups(TOTAL_MS)
         shapes = sorted({7 * SMALL_MIXES, G * SMALL_MIXES,
@@ -4336,6 +4597,7 @@ def main() -> int:
         launches_shard = probed("shard", sharding_phase(card))
         launches_mesh = probed("mesh", mesh_phase(card))
         launches_pipe = probed("pipe", pipe_phase(card))
+        launches_dry = probed("dry", dry_phase(card, cell_worker))
 
         main_rec = kern["sweep_buckets"]
         paths = {k: v for k, v in kern.items() if isinstance(k, str)}
@@ -4375,11 +4637,15 @@ def main() -> int:
             row["launches_shard"] = launches_shard.get(row["name"], 0)
             row["launches_mesh"] = launches_mesh.get(row["name"], 0)
             row["launches_pipe"] = launches_pipe.get(row["name"], 0)
+            row["launches_dry"] = launches_dry.get(row["name"], 0)
         emit(card, phase="done", seconds=time.perf_counter() - start)
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if cell_worker is not None:
+            cell_worker.stop()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4387,4 +4653,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dry-worker"]:
+        sys.exit(dry_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -443,6 +443,20 @@ def splittable(x: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
                                  for j, p in enumerate(x.placements)])
 
 
+#: Callbacks ``observe(local_args, ins, mesh)`` run as each function of
+#: :func:`on_shards` starts, with its local arguments and their placements
+#: (a cost counter's: :mod:`repro_torch.launch.op_costs`).
+_shard_observers: List[Callable] = []
+
+
+def add_shard_observer(observe: Callable) -> None:
+    _shard_observers.append(observe)
+
+
+def remove_shard_observer(observe: Callable) -> None:
+    _shard_observers.remove(observe)
+
+
 def on_shards(fn: Callable, mesh, outs, ins, grads=None) -> Callable:
     """``fn`` run on each rank's shards (``local_map``): its inputs laid
     out by ``ins`` (placements per argument, None for a non-tensor), their
@@ -455,7 +469,12 @@ def on_shards(fn: Callable, mesh, outs, ins, grads=None) -> Callable:
     def tup(pls):
         return tuple(None if p is None else tuple(p) for p in pls)
 
-    return local_map(fn, out_placements=tup(outs), in_placements=tup(ins),
+    def body(*local_args):
+        for observe in _shard_observers:
+            observe(local_args, ins, mesh)
+        return fn(*local_args)
+
+    return local_map(body, out_placements=tup(outs), in_placements=tup(ins),
                      in_grad_placements=None if grads is None
                      else tup(grads), device_mesh=mesh)
 
@@ -567,6 +586,20 @@ def start_ranks(store: Optional[Union[str, os.PathLike]], rank: int,
     return dev
 
 
+def start_fake_ranks(world_size: int, rank: int = 0) -> None:
+    """Join this process, as rank ``rank``, to a group of ``world_size``
+    ranks that exist in name only (backend ``"fake"``, from
+    ``torch.testing._internal.distributed.fake_pg``): its collectives
+    return at once and move nothing, so one process traces what one rank
+    of a production-size mesh runs, on ``meta`` tensors (the dry run,
+    :mod:`repro_torch.launch.dryrun`).  :func:`end_ranks` leaves it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
 def end_ranks() -> None:
     """Leave the process group (no-op where none is running) and drop the
     ambient mesh."""
@@ -584,7 +617,8 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     is the mesh's ``r``-th device in row-major order.  One process with no
     group running starts a one-rank group first (a ``(1, 1)`` mesh).
     ``device`` "cpu" is a gloo mesh; the default is the card's (NCCL),
-    which raises without one."""
+    which raises without one.  A fake group (:func:`start_fake_ranks`)
+    serves either device type."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -604,7 +638,7 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
         raise ValueError(f"a {tuple(shape)} mesh needs {size} ranks; the "
                          f"group has {world}")
     want = "nccl" if dev.type == "cuda" else "gloo"
-    if dist.get_backend() != want:
+    if dist.get_backend() not in (want, "fake"):
         raise ValueError(f"a {dev.type} mesh needs a {want} group; the "
                          f"group runs {dist.get_backend()}")
     return DeviceMesh(dev.type, torch.arange(size).reshape(tuple(shape)),

@@ -58,6 +58,26 @@ def _unflatten(params, flat: List[torch.Tensor]):
     return tree_map(lambda _: next(it), params)
 
 
+def _chunks(x: torch.Tensor, k: int) -> List[torch.Tensor]:
+    """``k`` slices of ``x`` along its first axis.  A DTensor sharded on
+    that axis (a batch placed by ``batch_specs``) is cut on each rank's
+    own rows, so no row moves: microbatch ``i`` holds the ``i``-th slice
+    of every rank's block, and each microbatch's rows stay spread over
+    the same ranks (a DTensor chunk would gather the whole batch on every
+    rank first).  The mean over equal microbatches is the same."""
+    if not is_dtensor(x) or not any(p.is_shard(0) for p in x.placements) \
+            or x.to_local().shape[0] % k:
+        return list(x.chunk(k))
+    from torch.distributed.tensor import DTensor
+
+    shape = (x.shape[0] // k,) + tuple(x.shape[1:])
+    return [DTensor.from_local(part, x.device_mesh, x.placements,
+                               run_check=False, shape=shape,
+                               stride=torch.empty(shape,
+                                                  device="meta").stride())
+            for part in x.to_local().chunk(k)]
+
+
 def _split(batch: Dict[str, torch.Tensor], k: int
            ) -> List[Dict[str, torch.Tensor]]:
     """``k`` microbatches along the first axis; 0-d leaves stay whole."""
@@ -69,7 +89,7 @@ def _split(batch: Dict[str, torch.Tensor], k: int
             if x.shape[0] % k:
                 raise ValueError(f"batch {name!r} of {x.shape[0]} rows does "
                                  f"not split into {k} microbatches")
-            parts = x.chunk(k)
+            parts = _chunks(x, k)
         for mb, part in zip(out, parts):
             mb[name] = part
     return out

@@ -1,18 +1,22 @@
 """Runs of the port on a mesh of gloo processes for the mesh tests
-(``tests/test_torch_mesh.py``, ``tests/test_torch_mesh_slow.py``).  It
-imports the port only.
+(``tests/test_torch_mesh.py``, ``tests/test_torch_mesh_slow.py``,
+``tests/test_torch_dryrun.py``).  It imports the port only.
 
 Run as a script, ``python tests/_torch_mesh_run.py SPEC OUT`` (SPEC a
 JSON object): it spawns ``prod(mesh)`` processes
 (:func:`repro_torch.launch.mesh_train.spawn`; gloo, or NCCL with
 ``"device": "cuda"``, one card a rank) on a ("data", "model") mesh of
 shape ``mesh``, and rank 0 writes ``{case: result}`` to OUT
-(``torch.save``).  Each case of ``train`` trains a smoke config changed
+(``torch.save``); ``"timeout"`` (seconds) bounds each wait of the
+group.  Each case of ``train`` trains a smoke config changed
 as the reference's gate changes it (``mesh_train.gate_config``) on
 :func:`batches` with its ``optimizer`` (default AdamW), its ``weights`` (an ``.npz``-style pickle of a JAX
 parameter pytree, optional) carried over with ``params_from_jax``; each
 case of ``decode`` prefills nothing and runs :data:`DECODE_STEPS` decode
-steps of a smoke model on a cache placed by ``cache_specs``.
+steps of a smoke model on a cache placed by ``cache_specs``; each case
+of ``count`` counts one step of a smoke config made by the dry run
+(:func:`count_run`), on every rank, as a fake group's one rank counts it
+(``tests/test_torch_dryrun.py``).
 """
 from __future__ import annotations
 
@@ -83,6 +87,38 @@ def decode_run(cfg, mesh, device) -> dict:
     return {"logits": out}
 
 
+def count_run(cfg, mesh, device, kind: str = "train", rows: int = 8,
+              seq: int = 32, microbatches: int = 1, meta: bool = False
+              ) -> dict:
+    """One step of ``cfg`` (built from seed 0 on ``device``, or on
+    ``meta``) made by the dry run's ``build_cell`` on ``mesh`` at
+    ``rows`` x ``seq`` (AdamW for a train step), counted by
+    ``op_costs.trace``: the cost, argument and peak bytes and FLOPs by
+    op."""
+    import dataclasses
+
+    from repro_torch import distributed as D
+    from repro_torch.launch import dryrun, op_costs
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import build
+    from repro_torch.models.model import ShapeSpec
+
+    model = dryrun.meta_model(cfg) if meta else build(cfg, device, seed=0)
+    D.set_dp_axes(sh.dp_axes_for(cfg))
+    try:
+        with D.use_mesh(mesh):
+            fn, args = dryrun.build_cell(
+                model, ShapeSpec("count", seq, rows, kind), mesh, "adamw",
+                microbatches)
+            _, cost, counter = op_costs.trace(fn, *args)
+    finally:
+        D.set_dp_axes(D.DP_AXES)
+    return {"cost": dataclasses.asdict(cost),
+            "argument_bytes": counter.argument_bytes,
+            "peak_bytes": counter.peak_bytes,
+            "flops_by_op": counter.flops_by_op}
+
+
 def rank_main(rank, device, spec: dict, out_path: str) -> None:
     from repro_torch import configs
     from repro_torch import distributed as D
@@ -104,6 +140,11 @@ def rank_main(rank, device, spec: dict, out_path: str) -> None:
     for case in spec.get("decode", []):
         cfg = mt.gate_config(configs.get_smoke(case["arch"]), shape)
         results[case["name"]] = decode_run(cfg, mesh, device)
+    for case in spec.get("count", []):
+        cfg = configs.get_smoke(case["arch"]).with_mesh(shape[1], shape[0])
+        results[case["name"]] = count_run(
+            cfg, mesh, device, case.get("kind", "train"), case["rows"],
+            case["seq"], case.get("microbatches", 1))
     if rank == 0:
         import torch
         torch.save(results, out_path)
@@ -116,7 +157,7 @@ def main() -> None:
 
     spec, out_path = json.loads(sys.argv[1]), sys.argv[2]
     spawn(rank_main, math.prod(spec["mesh"]), spec, out_path,
-          device=spec.get("device", "cpu"))
+          device=spec.get("device", "cpu"), timeout=spec.get("timeout"))
 
 
 if __name__ == "__main__":

@@ -50,7 +50,8 @@ assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
         "repro_torch.train.step", "repro_torch.launch.train",
         "repro_torch.distributed", "repro_torch.launch.mesh",
         "repro_torch.launch.shardings", "repro_torch.launch.analytic",
-        "repro_torch.launch.mesh_train", "repro_torch.train.pipeline"
+        "repro_torch.launch.mesh_train", "repro_torch.train.pipeline",
+        "repro_torch.launch.dryrun", "repro_torch.launch.op_costs"
         } <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -76,7 +77,7 @@ from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
 from repro_torch.train import make_stream_plant_model
 from repro_torch import configs
 from repro_torch.models import build, params_from_jax
-from repro_torch.launch import serve, train
+from repro_torch.launch import dryrun, serve, train
 from repro_torch.distributed import make_mesh, start_ranks
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serving import (EngineConfig, GraphServingEngine,
@@ -106,6 +107,8 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: make_mesh((1, 1), ("data", "model")),
              make_host_mesh,
              lambda: start_ranks("unused", 0, 1),
+             lambda: dryrun.run_cell("qwen3-8b", "train_4k", "single"),
+             lambda: dryrun.main(["--arch", "whisper-tiny"]),
              lambda: GraphServingEngine(cpu_model, 4, EngineConfig()),
              lambda: ServingEngine(cpu_model, 4, EngineConfig())):
     try:
