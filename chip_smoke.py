@@ -273,8 +273,15 @@ before it and read just after:
              the warm step; (b) qwen3-8b ``train_4k`` on the single pod,
              a fake group of 256 ranks with a card mesh: status ``ok``,
              its counts, dominant term, trace seconds and per-device peak
-             beside ``analytic_memory``.  The dry run launches none of
-             the five kernels (``launches_dry``).
+             beside ``analytic_memory``; (c) the cells PyTorch 2.11 failed
+             before the mesh faults' repairs (zamba2-7b ``train_4k`` and
+             ``prefill_32k``, grok-1-314b ``decode_32k`` and two-pod
+             ``train_4k``), cut to a layer or two: status ``ok``; (d)
+             the Fig. 5 seeded climb (``repro_torch.launch.hillclimb``,
+             4 workloads, 4 seeds) on the card, held to the CPU's climb
+             (run in the ``cell`` worker): allocations equal or tied,
+             weighted speedups within rtol 1e-9.  The dry run launches
+             none of the five kernels (``launches_dry``).
 
 After every phase a ``memory`` line gives the device memory still
 allocated and what a collector pass then frees (memory that reference
@@ -3825,6 +3832,19 @@ def pipe_phase(card: str) -> dict:
 
 #: (b) The production cell the phase runs: (arch, shape, mesh).
 DRY_CELL = ("qwen3-8b", "train_4k", "single")
+#: (c) Cells that PyTorch 2.11 failed before the mesh faults' repairs,
+#: each cut to a few layers: (arch, shape, mesh, layers).  zamba2-7b's
+#: Mamba blocks asked it for a ``Shard -> Partial``; grok-1-314b's MoE
+#: backward viewed a gradient whose shards its strides misstated.
+DRY_FAULT_CELLS = (("zamba2-7b", "train_4k", "single", 1),
+                   ("zamba2-7b", "prefill_32k", "single", 2),
+                   ("grok-1-314b", "decode_32k", "single", 2),
+                   ("grok-1-314b", "train_4k", "multi", 1))
+#: (d) The Fig. 5 seeded climb (``repro_torch.launch.hillclimb``) at the
+#: reference's defaults: (workloads, seeds); and how far the card's
+#: weighted speedups may lie from the CPU's (relative).
+DRY_FIG5 = (4, 4)
+DRY_FIG5_RTOL = 1e-9
 #: (a) The peak estimate's largest share off the real step's
 #: ``max_memory_allocated``.
 DRY_PEAK_RTOL = 0.15
@@ -3874,7 +3894,24 @@ def dry_worker(part: str, out_path: str) -> int:
             out["cell"] = dryrun.run_cell(arch, shape, mesh_kind,
                                           force=True, device=DEVICE,
                                           results_dir=tmp)
-        out["cell_wall_s"] = time.perf_counter() - t0
+            out["cell_wall_s"] = time.perf_counter() - t0
+            # (c) the cells 2.11 failed before the repairs, cut in depth
+            real_get = configs.get
+            out["fault_cells"] = []
+            for arch, shape, mesh_kind, layers in DRY_FAULT_CELLS:
+                configs.get = lambda name, n=layers: dataclasses.replace(
+                    real_get(name), n_layers=n)
+                try:
+                    out["fault_cells"].append(dryrun.run_cell(
+                        arch, shape, mesh_kind, force=True, device=DEVICE,
+                        results_dir=tmp))
+                finally:
+                    configs.get = real_get
+        # (d) the Fig. 5 climb on the CPU, which the card's is held to
+        from repro_torch.launch import hillclimb
+        t0 = time.perf_counter()
+        out["fig5_cpu"] = hillclimb.climb_rows(*DRY_FIG5, device="cpu")
+        out["fig5_cpu_s"] = time.perf_counter() - t0
         out["launches"] = launch_counts()
         Path(out_path).write_text(json.dumps(out))
         return 0
@@ -4027,6 +4064,18 @@ def dry_phase(card: str, cell_worker: DryWorker) -> dict:
          peak_estimate_bytes=cell["memory"]["peak_estimate_bytes"],
          argument_bytes=cell["memory"]["argument_bytes"],
          analytic=cell["memory"]["analytic"])
+    for (arch, shape, mesh_kind, layers), rec in zip(
+            DRY_FAULT_CELLS, cell_res["fault_cells"]):
+        check(rec["status"] == "ok",
+              f"dry (c): {arch}/{shape}/{mesh_kind} at {layers} layers "
+              f"{rec['status']}: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')[-2000:]}")
+        emit(card, phase="dry", case=f"{arch}/{shape}/{mesh_kind}",
+             layers=layers, chips=rec["chips"], trace_s=rec["trace_s"],
+             flops_per_device=rec["counted"]["flops_per_device"],
+             peak_estimate_bytes=rec["memory"]["peak_estimate_bytes"],
+             dominant=rec["roofline"]["dominant"])
+    fig5_phase(card, cell_res["fig5_cpu"], cell_res["fig5_cpu_s"])
     counts = {k: v + cell_res["launches"].get(k, 0)
               for k, v in res["launches"].items()}
     check(set(build.SOURCES) <= set(counts) and not any(counts.values()),
@@ -4034,6 +4083,69 @@ def dry_phase(card: str, cell_worker: DryWorker) -> dict:
     emit(card, phase="dry", case="summary",
          seconds=time.perf_counter() - t0, launches=counts)
     return counts
+
+
+def fig5_phase(card: str, cpu_rows: list, cpu_s: float) -> None:
+    """Phase 20(d): the Fig. 5 seeded climb at DRY_FIG5 on the card (the
+    static search and every score there, in float64), held to the CPU's
+    climb ``cpu_rows``: each workload's allocation equal, or tied within
+    DRY_FIG5_RTOL under the CPU's model where the card's search seeded
+    from a twin index; each weighted speedup within DRY_FIG5_RTOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import hillclimb
+    from repro_torch.sim import memsys
+    from repro_torch.sim.apps import app_fields, from_numpy, stack
+    from repro_torch.sim.runner import equal_share
+    from repro_torch.sim.static_search import (FIG5_FAMILIES, StaticOptions,
+                                               family_grid)
+
+    def ws_cpu(workload, config):
+        n = len(workload)
+        grid = family_grid(FIG5_FAMILIES[hillclimb.FIG5_FAMILY], n,
+                           StaticOptions())
+        params = from_numpy(app_fields(stack(workload)),
+                            torch.device("cpu"))
+
+        def ipc(c, b, p):
+            return memsys.evaluate(
+                params, np.asarray(c, dtype=np.float64), np.asarray(b),
+                np.asarray(p), total_cache_units=grid.total_cache_units,
+                total_bandwidth_gbps=grid.total_bandwidth_gbps,
+                iters=40).ipc
+
+        units, bw = equal_share(n, grid.total_cache_units,
+                                grid.total_bandwidth_gbps)
+        return float(torch.mean(
+            ipc(config["cache_units"], config["bandwidth_gbps"],
+                config["prefetch_on"]) / ipc(units, bw, np.zeros(n))))
+
+    t0 = time.perf_counter()
+    rows = hillclimb.climb_rows(*DRY_FIG5, device=DEVICE)
+    sync()
+    card_s = time.perf_counter() - t0
+    ties, worst = 0, 0.0
+    for got, want in zip(rows, cpu_rows):
+        check(got["workload"] == want["workload"],
+              f"dry (d): workloads {got['workload']} / {want['workload']}")
+        if got["config"] != want["config"]:
+            a = ws_cpu(got["workload"], got["config"])
+            b = ws_cpu(want["workload"], want["config"])
+            check(abs(a - b) <= DRY_FIG5_RTOL * abs(b),
+                  f"dry (d): {got['workload']} climbed to {got['config']} "
+                  f"on the card, {want['config']} on the CPU, ws {a} / {b}")
+            ties += 1
+        off = abs(got["refined_ws"] - want["refined_ws"]) / want["refined_ws"]
+        worst = max(worst, off)
+        check(off <= DRY_FIG5_RTOL,
+              f"dry (d): {got['workload']} refined ws {got['refined_ws']} "
+              f"on the card, {want['refined_ws']} on the CPU")
+    emit(card, phase="dry", case="fig5_seed", workloads=DRY_FIG5[0],
+         seeds=DRY_FIG5[1], card_s=card_s, cpu_s=cpu_s, ties=ties,
+         largest_rel_diff=worst,
+         refined_ws=[r["refined_ws"] for r in rows],
+         grid_best_ws=[r["grid_best_ws"] for r in rows])
 
 
 def sync() -> None:

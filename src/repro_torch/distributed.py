@@ -544,6 +544,20 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
         Replicate() if p.is_partial() else p for p in x.placements])
 
 
+def shard_start(x: torch.Tensor, dim: int) -> int:
+    """The first global index along ``dim`` of this rank's shard of the
+    DTensor ``x``, split evenly (as :func:`constrain` and the specs split
+    it), in the mesh's dimension order."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    index, size = 0, x.shape[dim]
+    for j, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            size //= mesh.size(j)
+            index = index * mesh.size(j) + coord[j]
+    return index * size
+
+
 def mesh_context():
     """The context model code runs in under a mesh: plain tensors it makes
     (positions, masks, rope tables) are the same on every rank, so each

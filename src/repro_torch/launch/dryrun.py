@@ -144,10 +144,8 @@ def build_cell(model: Model, spec: ShapeSpec, mesh, optimizer: str,
         return prefill, (params, batch)
 
     # decode: one token a row against a bf16 cache of seq_len positions,
-    # out of place: DTensor's in-place write into a cache sharded along
-    # its sequence is not the out-of-place result (ROADMAP Queue C), so
-    # the step holds the old cache and the new one at once where the
-    # reference donates the old
+    # written in place (each rank into its own shard), so the step holds
+    # one cache, as the reference donates its old one
     cache = model.init_cache(spec.global_batch, spec.seq_len,
                              dtype=torch.bfloat16)
     cache = sh.place(cache, sh.cache_specs(cfg, cache, mesh), mesh)
@@ -155,7 +153,7 @@ def build_cell(model: Model, spec: ShapeSpec, mesh, optimizer: str,
     def serve_step(params, cache, batch):
         with D.mesh_context(), torch.no_grad():
             return model.decode_step(cache, batch["tokens"],
-                                     batch["cur_len"])
+                                     batch["cur_len"], inplace=True)
 
     return serve_step, (params, cache, batch)
 

@@ -226,6 +226,8 @@ class _Local(TorchDispatchMode):
         self.cost, self.live = cost, live
         #: "op[input shapes]" -> FLOPs, for the ops that have any
         self.by_op: Dict[str, float] = {}
+        #: the shape of every local tensor an op made
+        self.shapes: set = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -259,6 +261,7 @@ class _Local(TorchDispatchMode):
                 _nbytes(t) for t in _tensors((args, kwargs)) + outs)
         for t in outs:
             self.live.track(t)
+            self.shapes.add(tuple(t.shape))
         return out
 
 
@@ -349,7 +352,8 @@ class CostCounter:
     local bytes of the tensors in ``args``, each storage once) and
     ``c.peak_bytes`` (the peak of live local bytes, the arguments'
     included); ``c.flops_by_op`` splits ``c.cost.flops`` by op and input
-    shapes."""
+    shapes, and ``c.shapes`` holds the shape of every local tensor an op
+    made."""
 
     def __init__(self, *args):
         self.cost = CostSummary()
@@ -367,6 +371,10 @@ class CostCounter:
     @property
     def flops_by_op(self) -> Dict[str, float]:
         return self._inner.by_op
+
+    @property
+    def shapes(self) -> set:
+        return self._inner.shapes
 
     def __enter__(self) -> "CostCounter":
         self._inner.__enter__()

@@ -39,10 +39,12 @@ def init_params(gen, cfg: ModelConfig, device) -> Dict:
 
 def _shared_block(shared, cfg: ModelConfig, x, positions):
     h = L.rms_norm(x, shared["ln1"], cfg.norm_eps)
-    x = x + T.attention_block(shared["attn"], cfg, h, positions)
+    x = x + T.residual(cfg, T.attention_block(shared["attn"], cfg, h,
+                                              positions))
     h = L.rms_norm(x, shared["ln2"], cfg.norm_eps)
-    return x + L.swiglu(h, shared["mlp"]["wg"], shared["mlp"]["wu"],
-                        shared["mlp"]["wd"])
+    return x + T.residual(cfg, L.swiglu(h, shared["mlp"]["wg"],
+                                        shared["mlp"]["wu"],
+                                        shared["mlp"]["wd"]))
 
 
 def _hybrid_layer(lp, cfg: ModelConfig, x, positions, shared, attend: bool):
@@ -101,10 +103,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len,
         att, nk, nv = T.attention_decode(shared["attn"], cfg, h,
                                          cache["k"][site], cache["v"][site],
                                          cur_len, inplace)
-        x = x + att
+        x = x + T.residual(cfg, att)
         h = L.rms_norm(x, shared["ln2"], cfg.norm_eps)
-        x = x + L.swiglu(h, shared["mlp"]["wg"], shared["mlp"]["wu"],
-                         shared["mlp"]["wd"])
+        x = x + T.residual(cfg, L.swiglu(h, shared["mlp"]["wg"],
+                                         shared["mlp"]["wu"],
+                                         shared["mlp"]["wd"]))
         ks.append(nk)
         vs.append(nv)
         for i in range(site * every, min((site + 1) * every, cfg.n_layers)):

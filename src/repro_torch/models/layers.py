@@ -22,7 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import foldable, pin, reduce_partial
+from repro_torch.distributed import (foldable, is_dtensor, on_shards, pin,
+                                      reduce_partial, shard_start)
 
 F32 = torch.float32
 
@@ -198,17 +199,75 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
     """Mean token cross-entropy; labels < 0 are masked.  Padded vocab
     entries (>= vocab_size) are excluded from the partition function by
-    masking their logits."""
+    masking their logits.  Logits sharded on a mesh (a DTensor split by
+    rows or by the vocabulary) stay on their shards:
+    :func:`_xent_terms_on_shards`."""
     v_pad = logits.shape[-1]
     if v_pad > vocab_size:
         mask = torch.arange(v_pad, device=logits.device) < vocab_size
         logits = torch.where(mask, logits, -1e30)
     logits = logits.to(F32)
-    logz = torch.logsumexp(logits, dim=-1)
-    # vocab-parallel logits (a DTensor sharded over the vocabulary) leave
-    # a masked partial sum here, reduced before the view drops its axis
-    gold = reduce_partial(torch.gather(
-        logits, -1, torch.clamp(labels, min=0)[..., None].long()))[..., 0]
+    if is_dtensor(logits) and any(p.is_shard() for p in logits.placements):
+        logz, gold = _xent_terms_on_shards(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[
+            ..., None].long())[..., 0]
     nll = logz - gold
     valid = (labels >= 0).to(F32)
     return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def _xent_terms_on_shards(logits: torch.Tensor, labels: torch.Tensor):
+    """``(logsumexp, gold logit)`` of sharded DTensor logits, each rank
+    working on its own ``(rows, seq, vocab shard)`` slice: over a sharded
+    vocabulary the max and the sum of exponentials are reductions over
+    the shards (small ``(rows, seq)`` partial results; DTensor's
+    ``logsumexp`` would gather the vocabulary), and each rank takes the
+    gold logit of the labels inside its shard (zero elsewhere), summed
+    over the vocabulary's mesh axes.  The gold logit's backward scatters
+    into the rank's own slice, so no rank builds the whole logits
+    gradient (as DTensor's gather does, even of logits split by rows
+    alone)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    rows = [p if p.is_shard() and not p.is_shard(last) else Replicate()
+            for p in logits.placements]
+    summed = [Partial() if p.is_shard(last) else r
+              for p, r in zip(logits.placements, rows)]
+    if is_dtensor(labels):
+        labels = labels.redistribute(mesh, rows)
+    else:       # the same on every rank
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim
+                                    ).redistribute(mesh, rows)
+    if any(p.is_shard(last) for p in logits.placements):
+        top = reduce_partial(torch.amax(logits.detach(), dim=-1))
+        logz = torch.log(reduce_partial(on_shards(
+            _sumexp_on_shard, mesh, (summed,), (logits.placements, rows))(
+                logits, top))) + top
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+    gold = on_shards(_gold_on_shard, mesh, (summed,),
+                     (logits.placements, rows, None))(
+        logits, labels, shard_start(logits, last))
+    return logz, reduce_partial(gold)
+
+
+def _sumexp_on_shard(logits: torch.Tensor, top: torch.Tensor
+                     ) -> torch.Tensor:
+    """This shard's part of ``sum(exp(logits - top))`` over the
+    vocabulary."""
+    return torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+
+
+def _gold_on_shard(logits: torch.Tensor, labels: torch.Tensor,
+                   offset: int) -> torch.Tensor:
+    """Each label's logit where it falls in this shard (which starts at
+    global index ``offset``), else 0."""
+    at = labels.long() - offset
+    inside = (at >= 0) & (at < logits.shape[-1])
+    gold = torch.gather(logits, -1,
+                        torch.clamp(at, 0, logits.shape[-1] - 1)[..., None])
+    return torch.where(inside, gold[..., 0], 0.0)

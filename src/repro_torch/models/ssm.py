@@ -171,12 +171,17 @@ def _ssd_on_shards(x, dt, A, Bm, Cm, chunk: int, initial_state):
 def mamba_block(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """One Mamba2 block (train/prefill).  x: (B, S, d)."""
     b, s, _ = x.shape
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    # the in-projections run column-parallel on the whole sequence, so
+    # that no product leaves a partial sum to meet the head-sharded conv,
+    # bias and D (PyTorch 2.11 would turn those into partial sums, which
+    # it cannot)
+    h = constrain(L.rms_norm(x, p["ln"], cfg.norm_eps), "dp", None, None)
     xi = L.einsum("bsd,de->bse", h, p["wx"])        # (B,S,di)
     z = L.einsum("bsd,de->bse", h, p["wz"])
     Bm = L.einsum("bsd,dn->bsn", h, p["wB"])
     Cm = L.einsum("bsd,dn->bsn", h, p["wC"])
-    dt_raw = L.einsum("bsd,dh->bsh", h, p["wdt"])
+    dt_raw = constrain(L.einsum("bsd,dh->bsh", h, p["wdt"]),
+                       "dp", None, "model")
     dt = F.softplus(dt_raw.to(F32) + p["dt_bias"].to(F32))
     xi = F.silu(causal_conv(xi, p["conv"]))
     hh, pp = cfg.ssm_heads, cfg.ssm_head_dim
@@ -187,7 +192,7 @@ def mamba_block(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = L.reshape(y, b, s, cfg.d_inner)
     y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return x + L.einsum("bse,ed->bsd", y, p["out"])
+    return x + T.residual(cfg, L.einsum("bse,ed->bsd", y, p["out"]))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, n_layers: int,

@@ -33,7 +33,9 @@ from repro_torch.distributed import (
     is_dtensor,
     mesh_axes,
     on_shards,
+    pin,
     placements,
+    shard_start,
     spec,
 )
 from repro_torch.models import layers as L
@@ -121,33 +123,80 @@ def init_params(gen, cfg: ModelConfig, device) -> Dict:
 # ------------------------------------------------------------------ #
 
 
-def _project_qkv(p, cfg: ModelConfig, h):
+def _project_qkv(p, cfg: ModelConfig, h, groups: int = 0):
+    """Q (B, S, Hq, Dh), K and V (B, S, Hkv, Dh); with ``groups`` (on a
+    mesh, :func:`_kv_groups`) K and V computed on each rank's heads alone,
+    each KV head ``groups`` times (B, S, Hkv * groups, Dh)."""
     b, s, _ = h.shape
     dh = cfg.head_dim
     q = L.reshape(L.einsum("bsd,dk->bsk", h, p["wq"]),
                   b, s, cfg.padded_heads, dh)
-    k = L.reshape(L.einsum("bsd,dk->bsk", h, p["wk"]),
-                  b, s, cfg.n_kv_heads, dh)
-    v = L.reshape(L.einsum("bsd,dk->bsk", h, p["wv"]),
-                  b, s, cfg.n_kv_heads, dh)
+    hkv = cfg.n_kv_heads * max(groups, 1)
+    k = L.reshape(L.einsum("bsd,dk->bsk", h, _kv_heads(p["wk"], cfg,
+                                                      groups)),
+                  b, s, hkv, dh)
+    v = L.reshape(L.einsum("bsd,dk->bsk", h, _kv_heads(p["wv"], cfg,
+                                                      groups)),
+                  b, s, hkv, dh)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
+def _kv_groups(cfg: ModelConfig, x) -> int:
+    """How many model ranks share one KV head where each rank computes
+    only the KV heads its query heads read (:func:`_kv_heads`): 1 where
+    the model axis divides the KV heads, ``m / Hkv`` where the KV heads
+    divide it; 0 where neither holds, or without head-sharded attention
+    on a mesh (every rank computes every KV head)."""
+    mesh = get_mesh()
+    if mesh is None or not is_dtensor(x) or not cfg.heads_shardable:
+        return 0
+    m = mesh_axes(mesh)[1].get("model", 1)
+    hkv = cfg.n_kv_heads
+    if hkv % m == 0:
+        return 1
+    if m % hkv == 0 and cfg.n_rep % (m // hkv) == 0:
+        return m // hkv
+    return 0
+
+
+def _kv_heads(w, cfg: ModelConfig, groups: int):
+    """``wk`` or ``wv`` (d, Hkv * Dh) as each model rank's KV heads read
+    it: with ``groups`` (:func:`_kv_groups`), each head's columns repeated
+    ``groups`` times and split over "model" (a local slice of the
+    replicated weight, the reference's GQA rule), so the product runs
+    column-parallel on the heads each rank's query heads read, as XLA's
+    partitioner computes it; a head shared by ``groups`` ranks is computed
+    on each.  Without, ``w`` itself."""
+    if not groups:
+        return w
+    if groups > 1:
+        hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        w = L.reshape(w.reshape(-1, hkv, 1, dh).expand(-1, hkv, groups, dh),
+                      -1, hkv * groups * dh)
+    return constrain(w, None, "model")
+
+
 def attention_block(p, cfg: ModelConfig, x, positions,
                     causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention (train / prefill)."""
+    """Full-sequence attention (train / prefill).  On a mesh whose model
+    axis shards the query heads, the input is gathered along the sequence
+    first and every projection runs column-parallel on each rank's heads
+    (:func:`_kv_heads`)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x)
+    groups = _kv_groups(cfg, x)
+    if groups:
+        x = constrain(x, "dp", None, None)
+    q, k, v = _project_qkv(p, cfg, x, groups)
     if cfg.rope_theta > 0:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     hq = "model" if cfg.heads_shardable else None
     q = constrain(q, "dp", None, hq, None)
-    k = repeat_kv(k, cfg.n_rep)
-    v = repeat_kv(v, cfg.n_rep)
+    k = repeat_kv(k, cfg.n_rep // max(groups, 1))
+    v = repeat_kv(v, cfg.n_rep // max(groups, 1))
     o = causal_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal)
     o = constrain(o, "dp", None, hq, None)
     return L.einsum("bsk,kd->bsd", L.reshape(o, b, s, -1), p["wo"])
@@ -162,29 +211,68 @@ def _write_cache(cfg: ModelConfig, cache, new, write_at,
     (``dynamic_update_slice``, whose start is clamped into the cache).
     Out of place, or (``inplace``) into ``cache`` itself, which is
     returned: the same values, written with no copy of the cache and no
-    host read of ``write_at``."""
+    host read of ``write_at`` (a DTensor cache on each rank's own shard,
+    :func:`_write_shards`)."""
     smax = cache.shape[1]
     if write_at.dim() >= 1:
         at = write_at.reshape(-1)
-        rows = torch.arange(cache.shape[0], device=cache.device)
         inside = at < smax
-        at = at.clamp(0, smax - 1)
+    elif cfg.decode_cache_update == "onehot":
+        if not inplace:
+            sel = torch.arange(smax, device=cache.device) == write_at
+            return torch.where(sel[None, :, None, None], new, cache)
+        at, inside = write_at, (write_at >= 0) & (write_at < smax)
+    else:
+        at, inside = write_at, None
+    at = at.clamp(0, smax - 1)
+    if inplace and is_dtensor(cache):
+        return _write_shards(cache, new, at, inside)
+    if at.dim() >= 1:
+        rows = torch.arange(cache.shape[0], device=cache.device)
         vals = torch.where(inside[:, None, None], new[:, 0], cache[rows, at])
         if inplace:
             return cache.index_put_((rows, at), vals)
         return cache.index_put((rows, at), vals)
-    if cfg.decode_cache_update == "onehot":
-        if inplace:
-            at = write_at.clamp(0, smax - 1).reshape(1)
-            inside = (write_at >= 0) & (write_at < smax)
-            vals = torch.where(inside, new, cache.index_select(1, at))
-            return cache.index_copy_(1, at, vals)
-        sel = torch.arange(smax, device=cache.device) == write_at
-        return torch.where(sel[None, :, None, None], new, cache)
-    at = write_at.clamp(0, smax - 1).reshape(1)
+    at = at.reshape(1)
+    if inside is not None:
+        new = torch.where(inside, new, cache.index_select(1, at))
     if inplace:
         return cache.index_copy_(1, at, new)
     return cache.index_copy(1, at, new)
+
+
+def _write_shards(cache, new, at, inside):
+    """:func:`_write_cache` in place into a DTensor ``cache`` (B, Smax,
+    Hkv, Dh) sharded along its sequence (and its batch): each rank writes
+    into its own shard, the rows of ``new`` taken in the cache's layout;
+    the rank that holds position ``at`` (clamped into the cache) writes
+    the new row where ``inside`` (None: always), every other rank writes
+    back one row of its own.  The cache's local shape keeps its
+    placements."""
+    from torch.distributed.tensor import Replicate
+
+    new = new.redistribute(cache.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in cache.placements])
+    local, rows_new = cache.to_local(), new.to_local()[:, 0]
+    if is_dtensor(at):      # positions placed as a batch leaf: whole
+        at = at.full_tensor()
+        inside = None if inside is None else inside.full_tensor()
+    b, sl = local.shape[:2]
+    at = at - shard_start(cache, 1)
+    mine = (at >= 0) & (at < sl)
+    keep = mine if inside is None else mine & inside
+    at = at.clamp(0, sl - 1)
+    if at.dim() >= 1:      # per row: this rank's rows of the vector
+        r0 = shard_start(cache, 0)
+        at, keep = at[r0:r0 + b], keep[r0:r0 + b]
+        rows = torch.arange(b, device=local.device)
+        local.index_put_((rows, at), torch.where(
+            keep[:, None, None], rows_new, local[rows, at]))
+    else:
+        at = at.reshape(1)
+        local.index_copy_(1, at, torch.where(
+            keep, rows_new[:, None], local.index_select(1, at)))
+    return cache
 
 
 def _decode_batch_axis(b: int):
@@ -405,8 +493,12 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                           "dp", espec, None, None)
 
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
-    if cfg.moe_gather_weights and not cfg.moe_ep:
-        # FSDP experts: gather the weights' d dim before the products
+    if not cfg.moe_ep:
+        # FSDP experts: gather the weights' d dim before the products.
+        # The reference gathers only under cfg.moe_gather_weights, its
+        # partitioner otherwise summing partial activations; DTensor
+        # otherwise computes every group's hidden gradient, whole, on
+        # each rank (a (G, E, C, d_ff) tensor), so a mesh always gathers.
         wg = constrain(wg, espec, None, "model")
         wu = constrain(wu, espec, None, "model")
         wd = constrain(wd, espec, "model", None)
@@ -437,11 +529,23 @@ def _seq_axis(cfg: ModelConfig):
     return "model" if cfg.seq_shard_activations else None
 
 
+def residual(cfg: ModelConfig, y):
+    """A sublayer's output ``y`` laid out as the residual stream, before
+    it is added to it.  The row-parallel product that ends attention or
+    the MLP leaves a pending partial sum over "model", which would
+    otherwise stay pending through the add and the next RMSNorm's scale,
+    so that the next column-parallel product ran whole on every model rank;
+    the stream's gradient, itself a partial sum behind a column-parallel
+    product, is reduced here likewise (:func:`pin`).  ``y`` itself without
+    a mesh."""
+    return pin(constrain(y, "dp", _seq_axis(cfg), None))
+
+
 def _layer(p, cfg: ModelConfig, x, positions):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attention_block(p["attn"], cfg, h, positions)
+    x = x + residual(cfg, attention_block(p["attn"], cfg, h, positions))
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _ffn(p, cfg, h)
+    x = x + residual(cfg, _ffn(p, cfg, h))
     return constrain(x, "dp", _seq_axis(cfg), None)
 
 
@@ -599,9 +703,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_len,
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         att, nk, nv = attention_decode(lp["attn"], cfg, h, cache["k"][i],
                                        cache["v"][i], cur_len, inplace)
-        x = x + att
+        x = x + residual(cfg, att)
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp, cfg, h)
+        x = x + residual(cfg, _ffn(lp, cfg, h))
         new_k.append(nk)
         new_v.append(nv)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

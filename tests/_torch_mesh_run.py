@@ -13,10 +13,12 @@ as the reference's gate changes it (``mesh_train.gate_config``) on
 :func:`batches` with its ``optimizer`` (default AdamW), its ``weights`` (an ``.npz``-style pickle of a JAX
 parameter pytree, optional) carried over with ``params_from_jax``; each
 case of ``decode`` prefills nothing and runs :data:`DECODE_STEPS` decode
-steps of a smoke model on a cache placed by ``cache_specs``; each case
-of ``count`` counts one step of a smoke config made by the dry run
+steps of a smoke model on a cache placed by ``cache_specs`` (``"inplace"``
+writes into the cache's own tensors, ``"both"`` decodes both ways); each
+case of ``count`` counts one step of a smoke config made by the dry run
 (:func:`count_run`), on every rank, as a fake group's one rank counts it
-(``tests/test_torch_dryrun.py``).
+(``tests/test_torch_dryrun.py``); each case of ``grads`` takes the loss
+and every gradient of one batch of ``rows`` rows (:func:`grads_run`).
 """
 from __future__ import annotations
 
@@ -49,9 +51,14 @@ def batches(cfg, kind: str, steps: int, rows: int = 8, seq: int = 32):
     return [batch] * steps
 
 
-def decode_run(cfg, mesh, device) -> dict:
+def decode_run(cfg, mesh, device, inplace=False) -> dict:
     """Logits of DECODE_STEPS greedy decode steps (every rank the same
-    tokens), with the model and cache on ``mesh`` (or one device)."""
+    tokens), with the model and cache on ``mesh`` (or one device); with
+    ``inplace`` each step writes into the cache's own tensors.  Also the
+    last cache whole, and for each of its tensors on a mesh whether the
+    local shape agrees with its placements.  ``inplace="both"`` runs the
+    steps out of place, then in place on a fresh cache, with one model:
+    ``{"out": ..., "inplace": ...}``."""
     import contextlib
 
     import torch
@@ -66,25 +73,95 @@ def decode_run(cfg, mesh, device) -> dict:
         D.set_dp_axes(sh.dp_axes_for(cfg))
         sh.place_model(model, mesh)
         ctx = D.use_mesh(mesh)
-    rng = np.random.default_rng(2)
-    toks = rng.integers(0, cfg.vocab_size, (DECODE_ROWS, 1), dtype=np.int64)
-    out = []
+
+    def steps(write_inplace: bool) -> dict:
+        rng = np.random.default_rng(2)
+        toks = rng.integers(0, cfg.vocab_size, (DECODE_ROWS, 1),
+                            dtype=np.int64)
+        out = []
+        cache = model.init_cache(DECODE_ROWS, DECODE_LEN,
+                                 dtype=torch.float32)
+        if mesh is not None:
+            cache = sh.place(cache, sh.cache_specs(cfg, cache, mesh), mesh)
+        for i in range(DECODE_STEPS):
+            logits, cache = model.decode_step(cache, toks, i,
+                                              inplace=write_inplace)
+            if D.is_dtensor(logits):
+                logits = logits.full_tensor()
+            out.append(logits.float().numpy().copy())
+            toks = logits.argmax(-1).numpy()
+        whole, layout = {}, {}
+        for k, t in cache.items():
+            if D.is_dtensor(t):
+                want = [n // np.prod([t.device_mesh.size(j) for j, p in
+                                      enumerate(t.placements)
+                                      if p.is_shard(i)], dtype=int)
+                        for i, n in enumerate(t.shape)]
+                layout[k] = list(t.to_local().shape) == want
+                t = t.full_tensor()
+            whole[k] = t.float().numpy().copy()
+        return {"logits": out, "cache": whole, "layout": layout}
+
     try:
         with ctx, D.mesh_context(), torch.no_grad():
-            cache = model.init_cache(DECODE_ROWS, DECODE_LEN,
-                                     dtype=torch.float32)
-            if mesh is not None:
-                cache = sh.place(cache, sh.cache_specs(cfg, cache, mesh),
-                                 mesh)
-            for i in range(DECODE_STEPS):
-                logits, cache = model.decode_step(cache, toks, i)
-                if D.is_dtensor(logits):
-                    logits = logits.full_tensor()
-                out.append(logits.float().numpy().copy())
-                toks = logits.argmax(-1).numpy()
+            if inplace == "both":
+                return {"out": steps(False), "inplace": steps(True)}
+            return steps(bool(inplace))
     finally:
         D.set_dp_axes(D.DP_AXES)
-    return {"logits": out}
+
+
+def grads_run(cfg, mesh, device, rows: int, seq: int = 32) -> dict:
+    """The loss of one seeded batch of ``rows`` rows and its gradient
+    with respect to every parameter (whole, f32 numpy, in ``tree_leaves``
+    order), the step's loss function on ``mesh`` (or one device), as the
+    train step takes each microbatch's."""
+    import contextlib
+
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import family_module
+
+    model = build(cfg, device, seed=0).requires_grad_(True)
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        D.set_dp_axes(sh.dp_axes_for(cfg))
+        sh.place_model(model, mesh)
+        ctx = D.use_mesh(mesh)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             batches(cfg, "tokens", 1, rows=rows, seq=seq)[0].items()}
+    try:
+        with ctx, D.mesh_context():
+            if mesh is not None:
+                batch = sh.place(batch, sh.batch_specs(cfg, batch, mesh),
+                                 mesh)
+            params = model.params
+            loss = family_module(cfg).loss_fn(params, cfg, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(params),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            whole = lambda t: (t.full_tensor() if D.is_dtensor(t)  # noqa
+                               else t).detach().float().numpy().copy()
+            return {"loss": float(whole(loss)),
+                    "grads": [whole(g) for g in grads]}
+    finally:
+        D.set_dp_axes(D.DP_AXES)
+
+
+def count_config(arch: str, shape, seq_shard: bool = False):
+    """``arch``'s smoke config as the dry run sets it for a (data, model)
+    mesh of ``shape``; ``seq_shard`` shards the residual stream's sequence
+    over "model" (the layout the reference's gate trains in)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(arch).with_mesh(shape[1], shape[0])
+    return dataclasses.replace(cfg, seq_shard_activations=seq_shard)
 
 
 def count_run(cfg, mesh, device, kind: str = "train", rows: int = 8,
@@ -116,7 +193,8 @@ def count_run(cfg, mesh, device, kind: str = "train", rows: int = 8,
     return {"cost": dataclasses.asdict(cost),
             "argument_bytes": counter.argument_bytes,
             "peak_bytes": counter.peak_bytes,
-            "flops_by_op": counter.flops_by_op}
+            "flops_by_op": counter.flops_by_op,
+            "shapes": sorted(counter.shapes)}
 
 
 def rank_main(rank, device, spec: dict, out_path: str) -> None:
@@ -139,9 +217,13 @@ def rank_main(rank, device, spec: dict, out_path: str) -> None:
             optimizer=case.get("optimizer", "adamw"))
     for case in spec.get("decode", []):
         cfg = mt.gate_config(configs.get_smoke(case["arch"]), shape)
-        results[case["name"]] = decode_run(cfg, mesh, device)
+        results[case["name"]] = decode_run(cfg, mesh, device,
+                                           case.get("inplace", False))
+    for case in spec.get("grads", []):
+        cfg = mt.gate_config(configs.get_smoke(case["arch"]), shape)
+        results[case["name"]] = grads_run(cfg, mesh, device, case["rows"])
     for case in spec.get("count", []):
-        cfg = configs.get_smoke(case["arch"]).with_mesh(shape[1], shape[0])
+        cfg = count_config(case["arch"], shape, case.get("seq_shard", False))
         results[case["name"]] = count_run(
             cfg, mesh, device, case.get("kind", "train"), case["rows"],
             case["seq"], case.get("microbatches", 1))

@@ -51,7 +51,8 @@ assert {"repro_torch.numpy_order", "repro_torch.sim.static_search",
         "repro_torch.distributed", "repro_torch.launch.mesh",
         "repro_torch.launch.shardings", "repro_torch.launch.analytic",
         "repro_torch.launch.mesh_train", "repro_torch.train.pipeline",
-        "repro_torch.launch.dryrun", "repro_torch.launch.op_costs"
+        "repro_torch.launch.dryrun", "repro_torch.launch.op_costs",
+        "repro_torch.launch.hillclimb"
         } <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -77,7 +78,7 @@ from repro_torch.runtime import (FusedTrainingPlant, TrainingPlant,
 from repro_torch.train import make_stream_plant_model
 from repro_torch import configs
 from repro_torch.models import build, params_from_jax
-from repro_torch.launch import dryrun, serve, train
+from repro_torch.launch import dryrun, hillclimb, serve, train
 from repro_torch.distributed import make_mesh, start_ranks
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serving import (EngineConfig, GraphServingEngine,
@@ -109,6 +110,9 @@ for call in (lambda: run_sweep(random_mixes(1, 16, seed=1), total_ms=1.0),
              lambda: start_ranks("unused", 0, 1),
              lambda: dryrun.run_cell("qwen3-8b", "train_4k", "single"),
              lambda: dryrun.main(["--arch", "whisper-tiny"]),
+             lambda: hillclimb.run_variant("dense_decode", "v1_onehot"),
+             lambda: hillclimb.climb_rows(1, 1),
+             lambda: hillclimb.main(["--fig5-seed"]),
              lambda: GraphServingEngine(cpu_model, 4, EngineConfig()),
              lambda: ServingEngine(cpu_model, 4, EngineConfig())):
     try:

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_mesh_run import batches
+from _torch_mesh_run import batches, grads_run
 
 from repro_torch import configs
 from repro_torch.launch import mesh_train as mt
@@ -79,11 +79,21 @@ def assert_same_training(got: dict, want: dict, steps: int, what: str):
     assert outside <= (1 - PARAM_SHARE) * total, (what, outside, total)
 
 
+#: Decoded in place and out of place on the mesh.
+DECODE_ARCHS = ("qwen3-8b", "pixtral-12b")
+#: A MoE whose gradients are taken at one row a rank (data axis 2).
+MOE_ARCH, MOE_ROWS = "grok-1-314b", MESH[0]
+
+
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     spec = {"mesh": list(MESH), "train": [
         {"name": name, "arch": arch, "optimizer": opt, "batch": "tokens",
-         "steps": mt.GATE_STEPS} for name, (arch, opt) in CASES.items()]}
+         "steps": mt.GATE_STEPS} for name, (arch, opt) in CASES.items()],
+        "decode": [{"name": f"decode/{arch}", "arch": arch,
+                    "inplace": "both"}
+                   for arch in DECODE_ARCHS],
+        "grads": [{"name": "moe", "arch": MOE_ARCH, "rows": MOE_ROWS}]}
     return run_on_mesh(tmp_path_factory.mktemp("mesh"), spec, timeout=300)
 
 
@@ -101,3 +111,58 @@ def test_sharded_training_equals_one_process(mesh_runs, case):
     assert_same_training(mesh_runs[case],
                          one_process(arch, MESH, optimizer=opt),
                          mt.GATE_STEPS, case)
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_inplace_decode_on_the_mesh_equals_out_of_place(mesh_runs, arch):
+    """Each rank writes the new K/V row into its own shard of the
+    sequence-sharded cache: logits and cache bit for bit the out-of-place
+    decode's, and every cache tensor's local shape its placements'."""
+    out, inplace = (mesh_runs[f"decode/{arch}"]["out"],
+                    mesh_runs[f"decode/{arch}"]["inplace"])
+    for got, want in zip(inplace["logits"], out["logits"]):
+        assert np.array_equal(got, want)
+    assert set(inplace["cache"]) == set(out["cache"])
+    for key, want in out["cache"].items():
+        assert np.array_equal(inplace["cache"][key], want), key
+    assert inplace["layout"] and all(inplace["layout"].values()), \
+        inplace["layout"]
+
+
+def test_moe_at_one_row_a_rank_gradients_equal_one_process(mesh_runs):
+    """A MoE's loss and every gradient at one row a rank on the mesh
+    within the training tests' gradient bound of one process
+    (``tests/test_torch_train.py``): ``1e-5 max(1, max|g|) + 1e-4 |g|``
+    entry by entry."""
+    got = mesh_runs["moe"]
+    cfg = mt.gate_config(configs.get_smoke(MOE_ARCH), MESH)
+    want = grads_run(cfg, None, "cpu", MOE_ROWS)
+    assert np.isclose(got["loss"], want["loss"], rtol=LOSS_RTOL,
+                      atol=LOSS_ATOL), (got["loss"], want["loss"])
+    assert len(got["grads"]) == len(want["grads"])
+    for i, (g, w) in enumerate(zip(got["grads"], want["grads"])):
+        bound = 1e-5 * max(1.0, float(np.abs(w).max())) + 1e-4 * np.abs(w)
+        assert (np.abs(g - w) <= bound).all(), (i, np.abs(g - w).max())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "whisper-tiny"])
+def test_one_device_mesh_trains_bit_for_bit(arch):
+    """On a (1, 1) mesh (one gloo rank, in this process) two bf16 AdamW
+    steps equal the steps without a mesh bit for bit, losses and every
+    parameter (the card's phase 18 holds the same on NCCL): the loss's
+    shard-local path is taken only where the logits are sharded."""
+    import dataclasses
+
+    from repro_torch import distributed as D
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), param_dtype="bfloat16")
+    steps = batches(cfg, "tokens", 2)
+    want = mt.train_on_mesh(cfg, None, steps, device="cpu")
+    try:
+        got = mt.train_on_mesh(
+            cfg, D.make_mesh((1, 1), mt.AXES, "cpu"), steps, device="cpu")
+    finally:
+        D.end_ranks()
+    assert got["losses"] == want["losses"]
+    for g, w in zip(got["params"], want["params"]):
+        assert np.array_equal(g, w)
